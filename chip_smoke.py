@@ -15,14 +15,23 @@ result):
    shapes the main path gives it, with CUDA-event times of both;
 4. the port on a small input on the card against the same call on the
    CPU, where every kernel wrapper runs its plain version;
-5. every launch count set to 0, then the main path at ``bench.py``'s
-   configuration: (a) multitaper CMC with jackknife CIs and the EMG
-   max-pool over 64×64 pairs, 120 s at 2048 Hz (bench.py:42-70,
-   135-162); (b) the cohort FWE rotation null, 12 subjects × 120 s ×
-   64×64, 10 000 surrogates, 13-100 Hz (bench.py:247-311).  Each kernel
-   of the path must have launched; the CMC must peak in the planted
-   15-30 Hz band and the null must detect the planted coupling;
-6. one JSON line describing the kernels, then the result line
+5. the main paths at ``bench.py``'s configuration, each with every
+   launch count set to 0 just before it and read just after: (a)
+   multitaper CMC with jackknife CIs and the EMG max-pool over 64×64
+   pairs, 120 s at 2048 Hz (bench.py:42-70, 135-162); (b) the cohort FWE
+   rotation null, 12 subjects × 120 s × 64×64, 10 000 surrogates,
+   13-100 Hz (bench.py:247-311), with the gram coefficient pass; (c) the
+   same null with ``coeff_engine='pallas'``, whose pair pass is kernel
+   B3, its observed map held to (b)'s; then the ``'xla'`` engine's
+   coefficient pass alone (plain PyTorch, no kernel) on the same cohort.
+   Each kernel of a path must have launched; the CMC must peak in the
+   planted 15-30 Hz band and each null must detect the planted coupling;
+6. the per-window rotation null on 12 subjects × 120 s × 8×8 pairs,
+   2 000 surrogates, and the full-FFT null on 2 subjects × 12 s × 8×8,
+   200 surrogates, whose flop rate sets the CUDA default of
+   ``cohort_msc_null``'s ``fft_flop_budget``; both must detect the
+   planted coupling;
+7. one JSON line describing the kernels, then the result line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 from __future__ import annotations
@@ -39,9 +48,10 @@ import mba_tpu_torch
 from mba_tpu_torch import _build
 from mba_tpu_torch.ops import cohort_null as TN
 from mba_tpu_torch.ops import coherence as TC
-from mba_tpu_torch.ops import cuda_msc, cuda_null
+from mba_tpu_torch.ops import cuda_coeffs, cuda_msc, cuda_null
 from mba_tpu_torch.ops.dpss import filtered_tapers
 from mba_tpu_torch.ops.framing import frame_signal, window_grid
+from mba_tpu_torch.ops.rotation_coeffs import band_spectra
 
 FS = 2048.0
 SECONDS = 120.0
@@ -54,9 +64,16 @@ N_SUBJECTS = 12
 N_SURROGATES = 10_000
 BAND = (13.0, 100.0)
 SURROGATE_CHUNK = 500
+WINDOW_CHUNK = 32       # cohort_msc_rotation_null's default
+PW_CHANNELS = 8         # the per-window and full-FFT nulls' pairs: 8×8
+PW_SURROGATES = 2000
+FFT_SUBJECTS, FFT_SECONDS, FFT_SURROGATES = 2, 12.0, 200
+FFT_BUDGET_SEC = 3.0    # cohort_msc_null's CUDA budget: ~3 s of this phase
 
 MSC_ATOL = 5e-5         # Pallas vs XLA, tests/test_ops_coherence.py:217
 NULL_TOL = 1e-5         # max_stat, rel and abs
+COEFF_RTOL, COEFF_ATOL = 2e-5, 2e-6   # B3 sums / weight sum, cuda_coeffs.py
+GRAM_RTOL, GRAM_ATOL = 2e-4, 2e-5     # × max; tests/test_gram_coeffs.py:65
 TIE_FRACTION = 1e-4     # cells whose argmax pick or count may differ
 
 
@@ -261,9 +278,61 @@ def check_null_kernel(device, reps=10) -> dict:
     return out
 
 
+def check_coeff_kernel(cohort, device, reps=10) -> dict:
+    """B3 against its plain version at the main path's chunk: the first
+    WINDOW_CHUNK windows of the bench cohort's first subject, their
+    weights from the disjoint subset (so half of them are 0), K = 5,
+    13-100 Hz (nF = 175), 64×64.  The sums over the chunk's weight sum
+    within COEFF_RTOL / COEFF_ATOL."""
+    ws = int(WINDOW_SEC * FS)
+    tapers = torch.as_tensor(filtered_tapers(ws, NW, 0.9),
+                             dtype=torch.float32, device=device)
+    _, lo, hi = TN._band_bins(ws, FS, BAND)
+    starts, _ = window_grid(cohort[0].shape[1], ws, int(ws * (1 - OVERLAP)),
+                            FS)
+    weights = TN.disjoint_window_weights(
+        starts[None], np.ones((1, len(starts)), np.float32), ws)[0]
+    cs = torch.as_tensor(starts[:WINDOW_CHUNK], device=device)
+    w = torch.as_tensor(weights[:WINDOW_CHUNK], device=device)
+    e, m = (band_spectra(torch.from_numpy(x[0]).to(device), cs, tapers, ws,
+                         lo, hi) for x in cohort)
+    got = cuda_coeffs.coeff_pairs(e, m, w)
+    ref = cuda_coeffs.coeff_pairs_plain(e, m, w)
+    wsum = float(w.sum())
+    errs, excess = {}, {}
+    for name, a, b in zip(("diag", "pr", "pi"), got, ref):
+        _require(bool(torch.isfinite(a).all()), f"B3 {name}: non-finite")
+        d = (a - b).abs() / wsum
+        bound = COEFF_ATOL + COEFF_RTOL * b.abs() / wsum
+        errs[name] = float(d.max())
+        excess[name] = float((d / bound).max())
+    log(json.dumps({"check": "coeff_pairs", "shape": [list(e.shape),
+                                                      list(m.shape)],
+                    "weight_sum": wsum, "max_abs_err_over_wsum": errs,
+                    "max_err_over_tolerance": excess,
+                    "rtol": COEFF_RTOL, "atol": COEFF_ATOL}))
+    _require(max(excess.values()) <= 1.0,
+             f"B3 disagrees with its plain version: {excess}")
+    ms = cuda_ms(lambda: cuda_coeffs.coeff_pairs(e, m, w), reps)
+    plain_ms = cuda_ms(lambda: cuda_coeffs.coeff_pairs_plain(e, m, w), reps)
+    return {"max_abs_err": max(errs.values()) * wsum, "ms": ms,
+            "plain_ms": plain_ms}
+
+
+def _require_close_observed(got, ref, what) -> None:
+    """Observed maps within the gram tolerance."""
+    sc = float(np.abs(ref).max())
+    err = float(np.abs(got - ref).max())
+    log(json.dumps({"check": what, "max_abs_err": err}))
+    _require(np.allclose(got, ref, rtol=GRAM_RTOL, atol=GRAM_ATOL * sc),
+             f"{what}: {err}")
+
+
 def check_small_against_cpu(device) -> None:
-    """The port's two entry points on a small input, on the card and on
-    the CPU (plain versions; the CPU tests tie those to ``mba_tpu``)."""
+    """The port's entry points on a small input, on the card and on the
+    CPU (plain versions; the CPU tests tie those to ``mba_tpu``): the
+    CMC, the rotation null with each coefficient engine and in the
+    per-window mode, and the full-FFT null."""
     eeg, emg = make_signals(1, 8, 8, 8.0)
     kw = dict(nw=NW, window_length_sec=WINDOW_SEC, overlap_frac=OVERLAP)
     got = TC.multitaper_msc(eeg, emg, FS, device=device, **kw)
@@ -286,18 +355,26 @@ def check_small_against_cpu(device) -> None:
     ce, cm = make_cohort(2, 12.0, 8, 8)
     kw = dict(nw=NW, window_length_sec=WINDOW_SEC, overlap_frac=OVERLAP,
               band=BAND, n_surrogates=1000, surrogate_chunk=SURROGATE_CHUNK)
-    got = TN.cohort_msc_rotation_null(ce, cm, FS, device=device, **kw)
-    ref = TN.cohort_msc_rotation_null(ce, cm, FS, device="cpu", **kw)
-    sc = float(np.abs(ref["observed"]).max())
-    err = float(np.abs(got["observed"] - ref["observed"]).max())
-    log(json.dumps({"check": "rotation null small, card vs cpu: observed",
-                    "max_abs_err": err}))
-    # the gram tolerance of tests/test_gram_coeffs.py:65-68
-    _require(np.allclose(got["observed"], ref["observed"], rtol=2e-4,
-                         atol=2e-5 * sc), f"observed: card vs cpu {err}")
-    _require(got["max_stat"].shape == (1000,)
-             and bool(np.isfinite(got["max_stat"]).all()),
-             "small null: bad max_stat")
+    for extra in ({}, dict(coeff_engine="pallas"), dict(coeff_engine="xla"),
+                  dict(rotation_mode="per_window")):
+        got = TN.cohort_msc_rotation_null(ce, cm, FS, device=device, **kw,
+                                          **extra)
+        ref = TN.cohort_msc_rotation_null(ce, cm, FS, device="cpu", **kw,
+                                          **extra)
+        _require_close_observed(
+            got["observed"], ref["observed"],
+            f"rotation null {extra or 'gram'} small, card vs cpu: observed")
+        _require(got["max_stat"].shape == (1000,)
+                 and bool(np.isfinite(got["max_stat"]).all()),
+                 f"small null {extra}: bad max_stat")
+    kw_fft = dict(nw=NW, window_length_sec=WINDOW_SEC, overlap_frac=OVERLAP,
+                  band=BAND, n_surrogates=16)
+    got = TN.cohort_msc_fft_null(ce, cm, FS, device=device, **kw_fft)
+    ref = TN.cohort_msc_fft_null(ce, cm, FS, device="cpu", **kw_fft)
+    _require_close_observed(got["observed"], ref["observed"],
+                            "fft null small, card vs cpu: observed")
+    _require(bool(np.isfinite(got["max_stat"]).all()),
+             "small fft null: bad max_stat")
 
 
 def run_cmc(eeg, emg, device) -> dict:
@@ -324,27 +401,74 @@ def run_cmc(eeg, emg, device) -> dict:
             "peak_hz": f_peak, "timings": res["timings"]}
 
 
-def run_null(eeg, emg, device) -> dict:
+def run_null(eeg, emg, device, n_surrogates=N_SURROGATES, **extra):
+    """One rotation null; returns (summary dict, observed map)."""
     kw = dict(nw=NW, window_length_sec=WINDOW_SEC, overlap_frac=OVERLAP,
               band=BAND, surrogate_chunk=SURROGATE_CHUNK, verbose=True)
     t0 = time.perf_counter()
     res = TN.cohort_msc_rotation_null(eeg, emg, FS, device=device,
-                                      n_surrogates=N_SURROGATES, **kw)
+                                      n_surrogates=n_surrogates, **kw,
+                                      **extra)
     wall = time.perf_counter() - t0
-    _require(res["max_stat"].shape == (N_SURROGATES,),
+    _require(res["max_stat"].shape == (n_surrogates,),
              f"max_stat shape {res['max_stat'].shape}")
     _require(bool(np.isfinite(res["max_stat"]).all()
                   and np.isfinite(res["observed"]).all()),
              "null: non-finite values")
-    _require(res["p_fwe"] < 0.01, f"null p_fwe {res['p_fwe']}: the planted "
-             "coupling was not detected")
+    _require(res["p_fwe"] < 0.01, f"null {extra} p_fwe {res['p_fwe']}: the "
+             "planted coupling was not detected")
     t = res["metadata"]["timings"]
     return {"wall_sec": wall, "p_fwe": res["p_fwe"],
             "observed_max": float(res["observed"].max()),
             "null_q95": res["null_quantiles"][0.95],
             "precompute_sec": t["precompute_sec"], "null_sec": t["null_sec"],
             "coeffs_sec": t["coeffs_sec"], "upload_sec": t["upload_sec"],
-            "contraction_flops": res["metadata"]["contraction_flops"]}
+            "coeff_engine": t["coeff_engine"],
+            "contraction_flops": res["metadata"]["contraction_flops"]}, \
+        res["observed"]
+
+
+def run_fft_null(cohort, device) -> dict:
+    """The full-FFT null at its small scale, and its flop rate
+    (``cohort_null.fft_null_flops`` over ``null_sec``)."""
+    eeg, emg = cohort
+    J, n, nE = eeg.shape
+    ws = int(WINDOW_SEC * FS)
+    t0 = time.perf_counter()
+    res = TN.cohort_msc_fft_null(eeg, emg, FS, device=device,
+                                 n_surrogates=FFT_SURROGATES, nw=NW,
+                                 window_length_sec=WINDOW_SEC,
+                                 overlap_frac=OVERLAP, band=BAND)
+    wall = time.perf_counter() - t0
+    _require(bool(np.isfinite(res["max_stat"]).all()
+                  and np.isfinite(res["observed"]).all()),
+             "fft null: non-finite values")
+    _require(res["p_fwe"] < 0.01, f"fft null p_fwe {res['p_fwe']}: the "
+             "planted coupling was not detected")
+    W = (n - ws) // int(ws * (1 - OVERLAP)) + 1
+    flops = TN.fft_null_flops(J, n, nE, emg.shape[2], W,
+                              res["metadata"]["K_tapers"], ws,
+                              len(res["freqs"]), FFT_SURROGATES)
+    t = res["metadata"]["timings"]
+    rate = flops / t["null_sec"]
+    return {"wall_sec": wall, "p_fwe": res["p_fwe"],
+            "precompute_sec": t["precompute_sec"], "null_sec": t["null_sec"],
+            "estimated_flops": flops, "flop_rate": rate,
+            "budget_for_3s": rate * FFT_BUDGET_SEC,
+            "fft_flop_budget_cuda": TN.FFT_FLOP_BUDGET["cuda"]}
+
+
+def reset_launches() -> None:
+    cuda_msc.msc_jackknife.launches = 0
+    cuda_null.null_tile.launches = 0
+    cuda_coeffs.coeff_pairs.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+
+
+def launches() -> dict:
+    return {"msc_jackknife": cuda_msc.msc_jackknife.launches,
+            "null_tile": cuda_null.null_tile.launches,
+            "coeff_pairs": cuda_coeffs.coeff_pairs.launches}
 
 
 def main() -> int:
@@ -371,45 +495,97 @@ def main() -> int:
     eeg, emg = make_signals(0, N_EEG, N_EMG, SECONDS)
     msc = check_msc_kernel(eeg, emg, device)
     null = check_null_kernel(device)
+    cohort = make_cohort(N_SUBJECTS, SECONDS, N_EEG, N_EMG)
+    coeff = check_coeff_kernel(cohort, device)
     torch.cuda.empty_cache()
     check_small_against_cpu(device)
-    cohort = make_cohort(N_SUBJECTS, SECONDS, N_EEG, N_EMG)
-    # warm calls (cuFFT plans, cuBLAS handles) outside the counted run
+    # warm calls (cuFFT plans, cuBLAS handles) outside the counted runs
     TC.multitaper_msc(eeg[:int(12 * FS)], emg[:int(12 * FS)], FS,
                       device=device, window_length_sec=WINDOW_SEC,
                       aggregate_emg_max=True)
-    TN.cohort_msc_rotation_null(cohort[0][:2], cohort[1][:2], FS,
-                                device=device, n_surrogates=SURROGATE_CHUNK,
-                                surrogate_chunk=SURROGATE_CHUNK, band=BAND)
+    for engine in ("gram", "pallas"):
+        TN.cohort_msc_rotation_null(cohort[0][:2], cohort[1][:2], FS,
+                                    device=device, coeff_engine=engine,
+                                    n_surrogates=SURROGATE_CHUNK,
+                                    surrogate_chunk=SURROGATE_CHUNK,
+                                    band=BAND)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    cuda_msc.msc_jackknife.launches = 0
-    cuda_null.null_tile.launches = 0
-    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
     cmc = run_cmc(eeg, emg, device)
     cmc["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    n_msc = cuda_msc.msc_jackknife.launches
-    _require(n_msc > 0, "the CMC main path did not launch the B1 kernel")
+    n_cmc = launches()
+    _require(n_cmc["msc_jackknife"] > 0,
+             "the CMC main path did not launch the B1 kernel")
     log(json.dumps({"phase": "cmc_main_path", "card": card, **cmc,
-                    "msc_jackknife_launches": n_msc}))
-    torch.cuda.reset_peak_memory_stats()
-    null_res = run_null(*cohort, device)
-    null_res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    n_null = cuda_null.null_tile.launches
-    _require(n_null > 0, "the null main path did not launch the B2 kernel")
-    log(json.dumps({"phase": "null_main_path", "card": card, **null_res,
-                    "null_tile_launches": n_null}))
+                    "launches": n_cmc}))
+    del eeg, emg
+    reset_launches()
+    gram, observed_gram = run_null(*cohort, device)
+    gram["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    n_gram = launches()
+    _require(n_gram["null_tile"] > 0,
+             "the null main path did not launch the B2 kernel")
+    log(json.dumps({"phase": "null_main_path", "card": card, **gram,
+                    "launches": n_gram}))
+    reset_launches()
+    pallas, observed_pallas = run_null(*cohort, device,
+                                       coeff_engine="pallas")
+    pallas["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    n_pallas = launches()
+    _require(n_pallas["coeff_pairs"] > 0 and n_pallas["null_tile"] > 0,
+             f"the 'pallas' null path did not launch B3 and B2: {n_pallas}")
+    log(json.dumps({"phase": "null_pallas_engine_path", "card": card,
+                    **pallas, "launches": n_pallas}))
+    _require_close_observed(observed_pallas, observed_gram,
+                            "null observed map: 'pallas' vs 'gram' engine")
+    t0 = time.perf_counter()
+    xla = TN.cohort_msc_rotation_null(
+        *cohort, FS, device=device, coeff_engine="xla", precompute_only=True,
+        nw=NW, window_length_sec=WINDOW_SEC, overlap_frac=OVERLAP, band=BAND)
+    t = xla["metadata"]["timings"]
+    log(json.dumps({"phase": "xla_engine_precompute", "card": card,
+                    "wall_sec": time.perf_counter() - t0,
+                    "precompute_sec": t["precompute_sec"],
+                    "coeffs_sec": t["coeffs_sec"],
+                    "upload_sec": t["upload_sec"],
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
+    _require_close_observed(xla["observed"], observed_gram,
+                            "null observed map: 'xla' vs 'gram' engine")
+    torch.cuda.empty_cache()
+
+    pw_cohort = tuple(np.ascontiguousarray(x[..., :PW_CHANNELS])
+                      for x in cohort)
+    del cohort
+    reset_launches()
+    pw, _ = run_null(*pw_cohort, device, n_surrogates=PW_SURROGATES,
+                     rotation_mode="per_window")
+    pw["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(json.dumps({"phase": "per_window_null", "card": card, **pw,
+                    "launches": launches()}))
+    del pw_cohort
+    torch.cuda.empty_cache()
+    reset_launches()
+    fft = run_fft_null(make_cohort(FFT_SUBJECTS, FFT_SECONDS, PW_CHANNELS,
+                                   PW_CHANNELS), device)
+    fft["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(json.dumps({"phase": "fft_null", "card": card, **fft,
+                    "launches": launches()}))
 
     kernels = [
         {"name": "msc_jackknife", "route": "cuda",
          "source": "mba_tpu_torch/csrc/msc_jackknife.cu",
          "replaces": "mba_tpu/ops/pallas_msc.py:40",
-         "launches": cuda_msc.msc_jackknife.launches, **msc},
+         "launches": n_cmc["msc_jackknife"], **msc},
         {"name": "null_tile", "route": "cuda",
          "source": "mba_tpu_torch/csrc/null_tile.cu",
          "replaces": "mba_tpu/ops/pallas_null.py:37",
-         "launches": cuda_null.null_tile.launches, **null},
+         "launches": n_gram["null_tile"], **null},
+        {"name": "coeff_pairs", "route": "cuda",
+         "source": "mba_tpu_torch/csrc/coeff_pairs.cu",
+         "replaces": "mba_tpu/ops/pallas_coeffs.py:83",
+         "launches": n_pallas["coeff_pairs"], **coeff},
     ]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

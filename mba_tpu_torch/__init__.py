@@ -2,14 +2,19 @@
 
 The JAX package ``mba_tpu`` stays the reference; this package runs the
 same computations on an NVIDIA Hopper card (H100), one slice at a time.
-The first slice is the main path of ``bench.py``:
+The slices so far:
 
 - ``ops.coherence.multitaper_msc``: multitaper CMC with leave-one-taper-out
   jackknife CIs and the EMG max-pool, whose epilogue is the hand-written
   CUDA kernel ``csrc/msc_jackknife.cu`` (``ops/cuda_msc.py``);
 - ``ops.cohort_null.cohort_msc_rotation_null``: the cohort FWE rotation
   null, whose surrogate tile is the CUDA kernel ``csrc/null_tile.cu``
-  (``ops/cuda_null.py``).
+  (``ops/cuda_null.py``), with the gram coefficient pass or the chunked
+  window pass (``ops/rotation_coeffs.py``) whose pair products are the
+  CUDA kernel ``csrc/coeff_pairs.cu`` (``ops/cuda_coeffs.py``), in the
+  shared or the per-window rotation mode;
+- ``ops.cohort_null.cohort_msc_fft_null`` and ``cohort_msc_null``: the
+  full-FFT phase-randomisation null and the dispatch between the two.
 
 The package imports torch, numpy and scipy, never ``jax`` or ``mba_tpu``.
 Public functions keep the JAX package's signatures, layouts (samples on

@@ -1,7 +1,8 @@
 """Build the hand-written CUDA kernels and bind them with ctypes.
 
-All ``csrc/*.cu`` sources compile in ONE ``nvcc`` call into one shared
-library with a plain C interface, under ``mba_tpu_torch/_build/``
+Each ``csrc/*.cu`` source compiles in its own ``nvcc`` process, all
+started together, and one more ``nvcc`` call links the objects into one
+shared library with a plain C interface, under ``mba_tpu_torch/_build/``
 (listed in ``.gitignore``).  The library name carries a hash of the
 sources and flags, so a changed source rebuilds on first use and an
 unchanged one loads at once.  Nothing is built when the package is
@@ -10,7 +11,9 @@ imported: the first kernel launch calls :func:`load_library`.
 Flags: ``sm_90a`` (Hopper, with ``wgmma``/``setmaxnreg`` available to
 later kernels) and no ``--use_fast_math``: the MSC kernel's Fisher
 transform needs IEEE ``logf``/``tanhf``/division so that its edge cases
-(``c == 1`` → ``+inf`` → NaN CIs) match the JAX package.
+(``c == 1`` → ``+inf`` → NaN CIs) match the JAX package, and the
+coefficient kernel's IEEE ``sqrtf``/division and kept denormals (no
+flush to zero) clamp a tiny ``pe·pm`` as the CPU does.
 """
 from __future__ import annotations
 
@@ -24,8 +27,8 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,6 +42,8 @@ _SIGNATURES = {
     # G, coefT, base, obs, partial_max, counts, max_out,
     # nF, S, JP, N, inv_J, stream
     "mba_null_tile": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # eeg, emg, weights, diag, pr, pi, wc, K, F, E, M, stream
+    "mba_coeff_pairs": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -58,13 +63,17 @@ def nvcc_path() -> str:
                        "CUDA toolkit's nvcc (PATH or /usr/local/cuda/bin)")
 
 
-def build_command(out: Path, srcs: list[Path], nvcc: str = "nvcc"
-                  ) -> list[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), *map(str, srcs)]
+def compile_command(obj: Path, src: Path, nvcc: str = "nvcc") -> list[str]:
+    return [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+
+
+def link_command(out: Path, objs: list[Path], nvcc: str = "nvcc"
+                 ) -> list[str]:
+    return [nvcc, *ARCH_FLAGS, "-shared", "-o", str(out), *map(str, objs)]
 
 
 def _digest(srcs: list[Path]) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + ARCH_FLAGS).encode())
     for src in srcs:
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -81,16 +90,39 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build under a private name, then rename: a concurrent build never
+    nvcc = nvcc_path()
+    # build under private names, then rename: a concurrent build never
     # loads a half-written library
-    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = build_command(tmp, sources(), nvcc_path())
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+    tag = f"{out.stem}.{os.getpid()}"
+    srcs = sources()
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in (compile_command(o, s, nvcc)
+                         for o, s in zip(objs, srcs))]
+    try:
+        for cmd, proc in procs:
+            output, _ = proc.communicate()
+            _check_nvcc(cmd, proc.returncode, output)
+        tmp = BUILD_DIR / f"{tag}.tmp.so"
+        cmd = link_command(tmp, objs, nvcc)
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        _check_nvcc(cmd, proc.returncode, proc.stdout + proc.stderr)
+        os.replace(tmp, out)
+    finally:
+        for _, proc in procs:       # the rest, after a failed compile
+            if proc.returncode is None:
+                proc.kill()
+                proc.communicate()
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
+
+
+def _check_nvcc(cmd: list[str], code: int, output: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n"
+                           f"{output}")
 
 
 @functools.lru_cache(maxsize=None)

@@ -23,12 +23,38 @@ def from_jax_null_state(base_cohort, coef_all, observed_flat,
     base = np.asarray(base_cohort, np.float32)
     coef = np.asarray(coef_all, np.float32)
     obs = np.asarray(observed_flat, np.float32)
+    if coef.ndim != 4:
+        raise ValueError(f"coef_all must be (J, F, N, P), got {coef.shape}")
     J, nF, N, P = coef.shape
     if base.shape[0] != nF or base.size != nF * N or obs.shape != (nF, N):
         raise ValueError(f"inconsistent shapes: base {base.shape}, coef "
                          f"{coef.shape}, observed {obs.shape}")
     as_t = lambda a: torch.as_tensor(a, device=device)
     return null_state(as_t(base), as_t(coef), as_t(obs))
+
+
+def from_jax_null_state_pw(base_cohort, coefw_all, observed_flat,
+                           device) -> NullState:
+    """The port's per-window null state from the JAX package's per-window
+    coefficient pass.
+
+    base_cohort (F, E, M), coefw_all (Wp, J, F, N, P) and observed_flat
+    (F, N) as numpy arrays (``_cohort_rotation_coeffs_pw``'s outputs).
+    The state's coefT is (Wp, F, J·P, N), what :func:`~mba_tpu_torch.ops.
+    cohort_null.null_chunk_pw` takes.
+    """
+    base = np.asarray(base_cohort, np.float32)
+    coefw = np.asarray(coefw_all, np.float32)
+    obs = np.asarray(observed_flat, np.float32)
+    if coefw.ndim != 5:
+        raise ValueError(f"coefw_all must be (Wp, J, F, N, P), got "
+                         f"{coefw.shape}")
+    Wp, J, nF, N, P = coefw.shape
+    if base.shape[0] != nF or base.size != nF * N or obs.shape != (nF, N):
+        raise ValueError(f"inconsistent shapes: base {base.shape}, coefw "
+                         f"{coefw.shape}, observed {obs.shape}")
+    as_t = lambda a: torch.as_tensor(a, device=device)
+    return null_state(as_t(base), as_t(coefw), as_t(obs))
 
 
 def tapers_from_jax(np_tapers, device) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Cohort 10k-surrogate MSC null by exact algebraic taper rotation.
 
-Port of ``mba_tpu/ops/cohort_null.py`` (:103-125, :332-346, :716-736,
-:801-1397), shared rotation mode on one device.  The surrogate operation
+Port of ``mba_tpu/ops/cohort_null.py`` (:103-125, :332-664, :716-736,
+:801-1532) on one device.  The surrogate operation
 rotates each taper's EMG spectrum by a phase φ_k(f) drawn per (subject,
 taper, frequency, surrogate) and shared across windows and channels;
 with C_kl the window-mean products of the normalised taper spectra,
@@ -11,8 +11,8 @@ with C_kl the window-mean products of the normalised taper spectra,
 so each surrogate is a dot product of length K(K−1) against trig
 features of the phases.  The pipeline:
 
-1. per subject, the gram coefficient pass (``gram_coeffs.py``, float32
-   matmuls) → base (F, E, M) and coef (F, E, M, P);
+1. per subject, the coefficient pass (by default the gram matmuls of
+   ``gram_coeffs.py``, float32) → base (F, E, M) and coef (F, E, M, P);
 2. the cohort epilogue: subject-mean base, stacked coefficients
    (J, F, N, P) and the observed statistic (φ = 0);
 3. the relayout for the kernel, ``cuda_null.prepare_null_coeffs``;
@@ -24,6 +24,16 @@ features of the phases.  The pipeline:
 The inference runs on a maximal disjoint window subset by default
 (``p_value_windows='disjoint'``): the shared rotation is distribution-
 preserving only for non-overlapping windows.
+
+The coefficient pass has three engines (``coeff_engine``): the gram
+matmuls (``'auto'``/``'gram'``), and the chunked window pass of
+``rotation_coeffs.py`` whose pair products run through kernel B3
+(``'pallas'``) or its plain version (``'xla'``).
+``rotation_mode='per_window'`` draws an independent rotation per window
+(:func:`null_chunk_pw`).
+:func:`cohort_msc_fft_null` is the classic full-FFT phase-randomisation
+engine, and :func:`cohort_msc_null` picks between it and the rotation
+engine by an estimate of the full-FFT engine's flops.
 """
 from __future__ import annotations
 
@@ -34,12 +44,22 @@ import numpy as np
 import torch
 
 from mba_tpu_torch._device import resolve_device, synchronize, to_device
-from mba_tpu_torch.ops.cuda_null import (null_features, null_tile,
-                                         null_tile_plain,
+from mba_tpu_torch.ops.cuda_coeffs import _F32_TINY
+from mba_tpu_torch.ops.cuda_null import (null_epilogue, null_features,
+                                         null_tile, null_tile_plain,
                                          prepare_null_coeffs)
 from mba_tpu_torch.ops.dpss import filtered_tapers
 from mba_tpu_torch.ops.framing import window_grid
 from mba_tpu_torch.ops.gram_coeffs import _pair_indices, gram_coeffs_subject
+from mba_tpu_torch.ops.rotation_coeffs import (band_spectra, pad_windows,
+                                               rotation_coeffs_subject)
+
+# cohort_msc_null's default flop budget for the full-FFT engine, by
+# device type: the CPU value is the JAX package's (cohort_null.py:1501);
+# the CUDA value is what chip_smoke.py's full-FFT phase (2 subjects ×
+# 12 s × 8×8, 200 surrogates) runs in about 3 s at its median warm rate
+# of 0.98e12 flop/s on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md)
+FFT_FLOP_BUDGET = {"cpu": 2e11, "cuda": 3e12}
 
 
 def phase_features(phi: torch.Tensor) -> torch.Tensor:
@@ -76,12 +96,29 @@ def cohort_epilogue(bases, coefs):
     return base_cohort, coef_all, observed_flat
 
 
+def cohort_epilogue_pw(bases, coefws):
+    """Per-window counterpart (``_cohort_rotation_coeffs_pw``'s tail).
+
+    bases: J × (F, E, M); coefws: J × (Wp, F, N, P) → (base_cohort
+    (F, E, M), coefw_all (Wp, J, F, N, P), observed_flat (F, N)).
+    """
+    base_cohort = torch.stack(bases).mean(dim=0)
+    coefw_all = torch.stack(coefws, dim=1)
+    P = coefw_all.shape[-1]
+    base_flat = base_cohort.reshape(base_cohort.shape[0], -1)
+    # the pad windows' coefficients are exactly zero
+    observed_flat = base_flat + coefw_all[..., :P // 2].sum(
+        dim=(0, -1)).mean(0)
+    return base_cohort, coefw_all, observed_flat
+
+
 @dataclass
 class NullState:
     """What the surrogate loop needs, resident on the device.
 
     base_flat / observed_flat: (F, N) float32; coefT: (F, J·P, N) float32
-    (``prepare_null_coeffs`` layout); n_subjects J; n_feats P = K(K−1).
+    (``prepare_null_coeffs`` layout), or (Wp, F, J·P, N) in the
+    per-window mode; n_subjects J; n_feats P = K(K−1).
     """
     base_flat: torch.Tensor
     observed_flat: torch.Tensor
@@ -92,7 +129,8 @@ class NullState:
 
 def null_state(base_cohort: torch.Tensor, coef_all: torch.Tensor,
                observed_flat: torch.Tensor) -> NullState:
-    J, nF, N, P = coef_all.shape
+    """coef_all (J, F, N, P), or (Wp, J, F, N, P) per window."""
+    *_, J, nF, N, P = coef_all.shape
     return NullState(
         base_flat=base_cohort.reshape(nF, N).to(torch.float32).contiguous(),
         observed_flat=observed_flat.to(torch.float32).contiguous(),
@@ -116,6 +154,38 @@ def null_chunk(phi: torch.Tensor, state: NullState):
     G = null_features(phase_features(phi))              # (F, S, J·P)
     return null_tile(G, state.coefT, state.base_flat, state.observed_flat,
                      state.n_subjects)
+
+
+def window_phases(seed: int, chunk_index: int, Wp: int, J: int,
+                  n_chunk: int, K: int, nF: int, device):
+    """φ for each of the Wp windows of one per-window surrogate chunk,
+    (J, n_chunk, K, nF) each.  Every (chunk, window) draws from its own
+    ``torch.Generator``, seeded from (seed, chunk, window) through numpy's
+    ``SeedSequence``: the streams are independent, as ``fold_in(key, w)``
+    makes them in the JAX package."""
+    for w in range(Wp):
+        state = np.random.SeedSequence([seed, chunk_index, w])
+        g = torch.Generator(device=device).manual_seed(
+            int(state.generate_state(1, np.uint64)[0] >> np.uint64(1)))
+        yield draw_phases(g, J, n_chunk, K, nF)
+
+
+def null_chunk_pw(phases, state: NullState):
+    """One surrogate chunk with independent rotations per window
+    (``_null_chunk_jit_pw``, ``cohort_null.py:428-457``).
+
+    phases: one (J, S, K, F) tensor per window, Wp in all (an iterable,
+    so only one window's features are alive at a time); state.coefT
+    (Wp, F, J·P, N).  The window contributions are summed with ``bmm``
+    in window order, then the plain surrogate tile's epilogue.  Returns
+    (max_stat (S,), counts increment (F, N)).
+    """
+    acc = None
+    for w, phi in enumerate(phases):
+        inc = torch.bmm(null_features(phase_features(phi)), state.coefT[w])
+        acc = inc if acc is None else acc.add_(inc)
+    stat = state.base_flat[:, None, :] + acc / state.n_subjects
+    return null_epilogue(stat, state.observed_flat)
 
 
 def _null_chunk_core(phi, coef_all, base_cohort, observed, counts):
@@ -153,6 +223,35 @@ def disjoint_window_weights(window_starts: np.ndarray,
         raise ValueError("p_value_windows='disjoint' left no active "
                          "windows — check window_starts/weights")
     return weights
+
+
+def _band_bins(window_samples: int, sampling_freq: float, band):
+    """The band's rFFT bins, never DC nor Nyquist: (freqs, lo, hi)."""
+    freqs_all = np.fft.rfftfreq(window_samples, d=1.0 / sampling_freq)
+    lo = max(int(np.searchsorted(freqs_all, band[0], side="left")), 1)
+    hi = min(int(np.searchsorted(freqs_all, band[1], side="right")),
+             len(freqs_all) - (1 if window_samples % 2 == 0 else 0))
+    if hi <= lo:
+        raise ValueError(f"band {band} selects no frequency bins")
+    return freqs_all[lo:hi], lo, hi
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def _window_set(window_starts, window_weights, J: int, n_samples: int,
+                window_samples: int, hop: int, sampling_freq: float):
+    """(J, W) int64 starts and float32 weights; by default the full
+    "cmc" grid for every subject, all weight 1."""
+    if window_starts is None:
+        starts, _ = window_grid(n_samples, window_samples, hop,
+                                sampling_freq, convention="cmc")
+        window_starts = np.tile(starts[None], (J, 1))
+    window_starts = np.asarray(window_starts, np.int64)
+    if window_weights is None:
+        window_weights = np.ones(window_starts.shape, np.float32)
+    return window_starts, np.asarray(window_weights, np.float32)
 
 
 def _not_ported(option: str, item: str):
@@ -193,37 +292,39 @@ def cohort_msc_rotation_null(
     Same arguments and result dictionary as
     ``mba_tpu.ops.cohort_null.cohort_msc_rotation_null``; arrays come back
     as numpy.  ``device`` as in ``coherence.multitaper_msc``.  Surrogate
-    phases come from ``torch.Generator(device).manual_seed(seed)``, so
+    phases come from ``torch.Generator(device).manual_seed(seed)`` (per
+    window and chunk in the per-window mode, :func:`window_phases`), so
     the draws differ from the JAX package's for the same seed (the null
     distribution is the same).  The contraction runs in float32.
-    ``window_chunk`` is unused, as in the JAX package's gram engine;
-    ``per_window_max_coef_bytes`` applies to the per-window mode only.
+
+    ``coeff_engine``: ``'auto'`` and ``'gram'`` run the gram matmuls;
+    ``'pallas'`` the chunked window pass through kernel B3 (its plain
+    version on the CPU); ``'xla'`` that pass through B3's plain version
+    on any device.  ``window_chunk`` sets the windows per chunk of the
+    latter two.  ``rotation_mode='per_window'`` always runs the plain
+    chunked pass, with the window axis kept (metadata ``'xla'``), and
+    needs ``p_value_windows='disjoint'`` and at most
+    ``per_window_max_coef_bytes`` of coefficients.
+    ``overlap_upload=True`` uploads and processes one subject at a time;
+    ``False`` uploads the whole cohort first, then runs the passes.
 
     Not ported yet (each raises ``NotImplementedError``): ``mesh``,
-    ``rotation_mode='per_window'``, ``coeff_engine='pallas'|'xla'``,
-    ``compute_dtype`` other than float32, a ``transfer_dtype`` other than
-    float32 or the ADC-count passthrough, and ``overlap_upload=False``.
+    ``compute_dtype`` other than float32, and a ``transfer_dtype`` other
+    than float32 or the ADC-count passthrough.
     """
     if mesh is not None:
         raise _not_ported("mesh (surrogates sharded over devices)", "A10")
-    if rotation_mode == "per_window":
-        raise _not_ported("rotation_mode='per_window'", "A11")
-    if rotation_mode != "shared":
+    if rotation_mode not in ("shared", "per_window"):
         raise ValueError("rotation_mode must be 'shared' or 'per_window', "
                          f"got {rotation_mode!r}")
-    if coeff_engine in ("pallas", "xla"):
-        raise _not_ported(f"coeff_engine={coeff_engine!r}",
-                          "B3 / 'Unsupported options'")
-    if coeff_engine not in ("auto", "gram"):
+    per_window = rotation_mode == "per_window"
+    if coeff_engine not in ("auto", "gram", "pallas", "xla"):
         raise ValueError("coeff_engine must be 'auto', 'gram', 'pallas' "
                          f"or 'xla', got {coeff_engine!r}")
     if compute_dtype is not None and compute_dtype not in (
             torch.float32, np.float32, "float32"):
         raise _not_ported(f"compute_dtype={compute_dtype!r}",
                           "'Unsupported options'")
-    if not overlap_upload:
-        raise _not_ported("overlap_upload=False (one fused all-subject "
-                          "program)", "'Unsupported options'")
     td = np.dtype(transfer_dtype) if transfer_dtype is not None else None
     if td is not None and td != np.dtype(np.float32):
         dtypes = {np.asarray(x).dtype if not isinstance(x, torch.Tensor)
@@ -251,67 +352,100 @@ def cohort_msc_rotation_null(
     K = int(tapers.shape[0])
     if K < 2:
         raise ValueError("rotation null requires at least 2 tapers")
-
-    freqs_all = np.fft.rfftfreq(window_samples, d=1.0 / sampling_freq)
-    lo = int(np.searchsorted(freqs_all, band[0], side="left"))
-    hi = int(np.searchsorted(freqs_all, band[1], side="right"))
-    lo = max(lo, 1)                                   # never DC
-    hi = min(hi, len(freqs_all) - (1 if window_samples % 2 == 0 else 0))
-    if hi <= lo:
-        raise ValueError(f"band {band} selects no frequency bins")
-    freqs = freqs_all[lo:hi]
+    freqs, lo, hi = _band_bins(window_samples, sampling_freq, band)
     nF = hi - lo
 
-    if window_starts is None:
-        starts, _ = window_grid(n_samples, window_samples, hop,
-                                sampling_freq, convention="cmc")
-        window_starts = np.tile(starts[None], (J, 1))
-    window_starts = np.asarray(window_starts, np.int64)
-    if window_weights is None:
-        window_weights = np.ones(window_starts.shape, np.float32)
-    window_weights = np.asarray(window_weights, np.float32)
+    window_starts, window_weights = _window_set(
+        window_starts, window_weights, J, n_samples, window_samples, hop,
+        sampling_freq)
     if p_value_windows == "disjoint":
         window_weights = disjoint_window_weights(
             window_starts, window_weights, window_samples)
     elif p_value_windows != "all":
         raise ValueError("p_value_windows must be 'disjoint' or 'all', "
                          f"got {p_value_windows!r}")
+    W = window_starts.shape[1]
+    wc = int(min(window_chunk, W))
+    Wp = -(-W // wc) * wc
+    if per_window:
+        if p_value_windows != "disjoint":
+            raise ValueError("rotation_mode='per_window' requires "
+                             "p_value_windows='disjoint': independent "
+                             "per-window rotations are only distribution-"
+                             "preserving for non-overlapping windows")
+        pw_bytes = Wp * J * nF * nE * nM * K * (K - 1) * 4
+        if pw_bytes > per_window_max_coef_bytes:
+            raise ValueError(
+                f"per-window coefficients need {pw_bytes / 1e9:.1f} GB "
+                f"(> {per_window_max_coef_bytes / 1e9:.1f} GB budget) — "
+                "the per-window mode is for small window counts / channel "
+                "subsets; use rotation_mode='shared' (window-summed "
+                "coefficients, W-independent memory) at this scale")
+    engine = "gram" if coeff_engine == "auto" else coeff_engine
+    if per_window:
+        engine = "xla"                # per-window keeps the scan engine
 
     # ---- precompute all-subject rotation coefficients (device-resident) --
     t_pre0 = time.perf_counter()
-    t_stage: dict = {}
     tapers_t = torch.as_tensor(tapers, dtype=torch.float32, device=device)
     starts_all = torch.as_tensor(window_starts, device=device)
     weights_all = torch.as_tensor(window_weights, device=device)
+
+    def subject_coeffs(eeg_j, emg_j, j):
+        # integer ADC counts travel as they are; every engine casts them
+        # to float32 per window chunk
+        if engine == "gram":
+            return gram_coeffs_subject(eeg_j, emg_j, starts_all[j],
+                                       weights_all[j], tapers_t,
+                                       window_samples, lo, hi)
+        return rotation_coeffs_subject(
+            eeg_j, emg_j, starts_all[j], weights_all[j], tapers_t,
+            window_samples, lo, hi, wc, engine=engine,
+            per_window=per_window)
+
     t_up = t_co = 0.0
     upload_bytes = 0
     bases, coefs = [], []
-    for j in range(J):
+    if overlap_upload and not per_window:
+        # one subject at a time: upload, then its coefficient pass
+        for j in range(J):
+            t0 = time.perf_counter()
+            eeg_j = to_device(eeg_cohort[j], device)
+            emg_j = to_device(emg_cohort[j], device)
+            synchronize(device)
+            t_up += time.perf_counter() - t0
+            upload_bytes += _nbytes(eeg_j) + _nbytes(emg_j)
+            t0 = time.perf_counter()
+            b, c = subject_coeffs(eeg_j, emg_j, j)
+            bases.append(b)
+            coefs.append(c)
+            del eeg_j, emg_j
+            synchronize(device)
+            t_co += time.perf_counter() - t0
+    else:
+        # fused (cohort_null.py:1059-1080): the whole cohort first
         t0 = time.perf_counter()
-        # integer ADC counts travel as they are; the gram pass casts
-        # them to float32 per window chunk
-        eeg_j = to_device(eeg_cohort[j], device)
-        emg_j = to_device(emg_cohort[j], device)
+        eeg_d = to_device(eeg_cohort, device)
+        emg_d = to_device(emg_cohort, device)
         synchronize(device)
-        t_up += time.perf_counter() - t0
-        upload_bytes += (eeg_j.numel() * eeg_j.element_size()
-                         + emg_j.numel() * emg_j.element_size())
+        t_up = time.perf_counter() - t0
+        upload_bytes = _nbytes(eeg_d) + _nbytes(emg_d)
         t0 = time.perf_counter()
-        b, c = gram_coeffs_subject(eeg_j, emg_j, starts_all[j],
-                                   weights_all[j], tapers_t,
-                                   window_samples, lo, hi)
-        bases.append(b)
-        coefs.append(c)
-        del eeg_j, emg_j
+        for j in range(J):
+            b, c = subject_coeffs(eeg_d[j], emg_d[j], j)
+            bases.append(b)
+            coefs.append(c)
+        del eeg_d, emg_d
         synchronize(device)
-        t_co += time.perf_counter() - t0
-    base_cohort, coef_all, observed_flat = cohort_epilogue(bases, coefs)
+        t_co = time.perf_counter() - t0
+    epilogue = cohort_epilogue_pw if per_window else cohort_epilogue
+    base_cohort, coef_all, observed_flat = epilogue(bases, coefs)
     del bases, coefs
     observed = observed_flat.reshape(nF, nE, nM).cpu().numpy()
     P_feats = int(coef_all.shape[-1])
     t_precompute = time.perf_counter() - t_pre0
-    t_stage.update(upload_sec=round(t_up, 3), coeffs_sec=round(t_co, 3),
-                   upload_bytes=int(upload_bytes), coeff_engine="gram")
+    t_stage = dict(upload_sec=round(t_up, 3), coeffs_sec=round(t_co, 3),
+                   upload_bytes=int(upload_bytes), coeff_engine=engine)
 
     if precompute_only:
         return {
@@ -345,8 +479,12 @@ def cohort_msc_rotation_null(
     max_stats = []
     n_total = 0
     while n_total < n_surrogates:
-        phi = draw_phases(gen, J, chunk, K, nF)
-        ms, inc = null_chunk(phi, state)
+        if per_window:
+            ms, inc = null_chunk_pw(
+                window_phases(seed, len(max_stats), Wp, J, chunk, K, nF,
+                              device), state)
+        else:
+            ms, inc = null_chunk(draw_phases(gen, J, chunk, K, nF), state)
         counts += inc
         max_stats.append(ms)
         n_total += chunk
@@ -378,8 +516,293 @@ def cohort_msc_rotation_null(
             "rotation_mode": rotation_mode,
             "compute_dtype": "float32",
             "contraction_flops": float(2 * n_total * nF * nE * nM * J
-                                       * P_feats),
+                                       * P_feats * (Wp if per_window
+                                                    else 1)),
             "timings": {"precompute_sec": round(t_precompute, 3),
                         "null_sec": round(t_null, 3), **t_stage},
         },
     }
+
+
+# ---- the full-FFT phase-randomisation engine -----------------------------
+
+def _msc_map_subject(eeg, emg, starts, weights, tapers, window_samples: int,
+                     band_lo: int, band_hi: int, window_chunk: int):
+    """One subject's weighted window-mean MSC map (F, E, M): the chunked
+    loop of ``_cohort_msc_map`` (``cohort_null.py:475-506``)."""
+    starts, weights = pad_windows(starts, weights, window_chunk)
+    acc = None
+    for c0 in range(0, starts.shape[0], window_chunk):
+        cs = starts[c0:c0 + window_chunk]
+        wts = weights[c0:c0 + window_chunk]
+        Es = band_spectra(eeg, cs, tapers, window_samples, band_lo, band_hi)
+        Ms = band_spectra(emg, cs, tapers, window_samples, band_lo, band_hi)
+        Er, Ei = Es.real[..., :, None], Es.imag[..., :, None]
+        Mr, Mi = Ms.real[..., None, :], Ms.imag[..., None, :]
+        csd_r = (Er * Mr + Ei * Mi).sum(dim=1)          # (wc, F, E, M)
+        csd_i = (Er * Mi - Ei * Mr).sum(dim=1)
+        pe = (Es.real ** 2 + Es.imag ** 2).sum(dim=1)
+        pm = (Ms.real ** 2 + Ms.imag ** 2).sum(dim=1)
+        den = torch.clamp_min(pe[..., :, None] * pm[..., None, :], _F32_TINY)
+        msc = (csd_r ** 2 + csd_i ** 2) / den
+        part = (wts[:, None, None, None] * msc).sum(dim=0)
+        acc = part if acc is None else acc.add_(part)
+    return acc / torch.clamp_min(weights.sum(), _F32_TINY)
+
+
+def cohort_msc_map(eeg, emg, starts, weights, tapers, window_samples: int,
+                   band_lo: int, band_hi: int, window_chunk: int):
+    """Cohort-mean weighted window-mean MSC map (F, E, M)
+    (``_cohort_msc_map``).
+
+    eeg (J, n, E) / emg (J, n, M) float32; starts (J, W) int; weights
+    (J, W) float32; tapers (K, S); all on one device.
+    """
+    return torch.stack([
+        _msc_map_subject(eeg[j], emg[j], starts[j], weights[j], tapers,
+                         window_samples, band_lo, band_hi, window_chunk)
+        for j in range(eeg.shape[0])]).mean(dim=0)
+
+
+def fft_surrogate_maps(phases, eeg, emg_spec, starts, weights, tapers,
+                       window_samples: int, band_lo: int, band_hi: int,
+                       window_chunk: int, n_samples: int) -> torch.Tensor:
+    """Cohort maps of S full-FFT surrogates (``cohort_null.py:606-617``).
+
+    phases (S, J, n_f) float32, one phase per (surrogate, subject, signal
+    bin) shared by the EMG channels; emg_spec (J, n_f, M) the rFFT of the
+    EMG signals.  The surrogate signals are ``irfft(spec·e^{iφ})``; the S
+    surrogates ride the EMG channel axis of one map evaluation (the map of
+    pair (e, (s, m)) is surrogate s's map of (e, m)).  Returns (S, F, E·M).
+    """
+    S, J, _ = phases.shape
+    nM = emg_spec.shape[-1]
+    rot = torch.polar(torch.ones_like(phases), phases)
+    surr = torch.fft.irfft(emg_spec[None] * rot[..., None], n=n_samples,
+                           dim=2)                       # (S, J, n, M)
+    emg_s = surr.permute(1, 2, 0, 3).reshape(J, n_samples, S * nM)
+    maps = cohort_msc_map(eeg, emg_s, starts, weights, tapers,
+                          window_samples, band_lo, band_hi, window_chunk)
+    nF, nE = maps.shape[:2]
+    return maps.reshape(nF, nE, S, nM).permute(2, 0, 1, 3).reshape(
+        S, nF, nE * nM)
+
+
+def cohort_msc_fft_null(
+        eeg_cohort,
+        emg_cohort,
+        sampling_freq: float,
+        n_surrogates: int = 1000,
+        nw: float = 3,
+        window_length_sec: float = 2.0,
+        overlap_frac: float = 0.5,
+        taper_eigenvalue_threshold: float = 0.90,
+        band: tuple[float, float] = (13.0, 100.0),
+        quantiles=(0.95, 0.99),
+        surrogate_chunk: int = 8,
+        window_chunk: int = 32,
+        seed: int = 0,
+        window_starts=None,
+        window_weights=None,
+        verbose: bool = False,
+        device=None,
+) -> dict:
+    """Classic full-FFT phase-randomisation cohort null (small scale).
+
+    Port of ``mba_tpu.ops.cohort_null.cohort_msc_fft_null`` (:511-664),
+    plain PyTorch: each surrogate draws fresh uniform phases on every
+    subject's EMG signal spectrum (one per bin, shared across the EMG
+    channels; DC and Nyquist stay real), resynthesises the EMG with
+    ``torch.fft.irfft`` and re-evaluates the cohort MSC map over ALL
+    windows.  Same arguments and result dictionary as the JAX function,
+    plus ``device``; arrays come back as numpy.  Phases come from
+    ``torch.Generator(device).manual_seed(seed)``.  A chunk of S
+    surrogates holds S·J·n_samples·M float32 resynthesised samples.
+    """
+    device = resolve_device(device, eeg_cohort, emg_cohort)
+    if len(np.shape(eeg_cohort)) != 3 or len(np.shape(emg_cohort)) != 3:
+        raise ValueError("cohort arrays must be (J, n_samples, n_channels)")
+    if tuple(np.shape(eeg_cohort))[:2] != tuple(np.shape(emg_cohort))[:2]:
+        raise ValueError("EEG/EMG cohorts must share (J, n_samples)")
+    J, n_samples, nE = np.shape(eeg_cohort)
+    nM = np.shape(emg_cohort)[2]
+
+    window_samples = int(window_length_sec * sampling_freq)
+    hop = int(window_samples * (1 - overlap_frac))
+    tapers = filtered_tapers(window_samples, nw, taper_eigenvalue_threshold)
+    K = int(tapers.shape[0])
+    freqs, lo, hi = _band_bins(window_samples, sampling_freq, band)
+    nF = hi - lo
+    window_starts, window_weights = _window_set(
+        window_starts, window_weights, J, n_samples, window_samples, hop,
+        sampling_freq)
+    W = window_starts.shape[1]
+    wc = int(min(window_chunk, W))
+
+    t_pre0 = time.perf_counter()
+    eeg_d = to_device(eeg_cohort, device).to(torch.float32)
+    emg_d = to_device(emg_cohort, device).to(torch.float32)
+    starts_d = torch.as_tensor(window_starts, device=device)
+    weights_d = torch.as_tensor(window_weights, device=device)
+    tapers_t = torch.as_tensor(tapers, dtype=torch.float32, device=device)
+    args = (starts_d, weights_d, tapers_t, window_samples, lo, hi, wc)
+    observed_d = cohort_msc_map(eeg_d, emg_d, *args)
+    spec = torch.fft.rfft(emg_d, dim=1)                  # (J, n_f, M)
+    del emg_d
+    observed = observed_d.cpu().numpy()
+    observed_flat = observed_d.reshape(nF, nE * nM)
+    t_precompute = time.perf_counter() - t_pre0
+
+    t_null0 = time.perf_counter()
+    counts = torch.zeros((nF, nE * nM), dtype=torch.int32, device=device)
+    chunk = int(min(surrogate_chunk, n_surrogates))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    max_stats = []
+    n_total = 0
+    while n_total < n_surrogates:
+        phases = torch.rand((chunk, J, spec.shape[1]), generator=gen,
+                            device=device) * np.float32(2.0 * np.pi)
+        phases[..., 0] = 0.0
+        if n_samples % 2 == 0:
+            phases[..., -1] = 0.0
+        maps = fft_surrogate_maps(phases, eeg_d, spec, *args, n_samples)
+        max_stats.append(maps.amax(dim=(1, 2)))
+        counts += (maps >= observed_flat[None]).sum(dim=0, dtype=torch.int32)
+        n_total += chunk
+    max_stat = torch.cat(max_stats).cpu().numpy()[:n_surrogates]
+    counts_np = counts.cpu().numpy().reshape(nF, nE, nM)
+    t_null = time.perf_counter() - t_null0
+    p_unc = (1.0 + counts_np) / (1.0 + n_total)
+    p_fwe = float((1.0 + (max_stat >= observed.max()).sum())
+                  / (1.0 + len(max_stat)))
+    if verbose:
+        print(f"[fft-null] J={J} K={K} F={nF} pairs={nE}x{nM} W={W}: "
+              f"{n_total} surrogates in {t_null:.1f}s")
+
+    return {
+        "observed": observed,
+        "freqs": freqs,
+        "max_stat": max_stat,
+        "null_quantiles": {q: float(np.quantile(max_stat, q))
+                           for q in quantiles},
+        "p_uncorrected": p_unc.astype(np.float32),
+        "p_fwe": p_fwe,
+        "metadata": {
+            "method": "full_fft_phase_randomization",
+            "K_tapers": K,
+            "n_surrogates_drawn": int(n_total),
+            "n_surrogates": int(n_surrogates),
+            "band": tuple(band),
+            "band_bins": (lo, hi),
+            "n_subjects": J,
+            "timings": {"precompute_sec": round(t_precompute, 3),
+                        "null_sec": round(t_null, 3)},
+        },
+    }
+
+
+def fft_null_flops(J: int, n_samples: int, nE: int, nM: int, W: int,
+                   K: int, window_samples: int, nF: int,
+                   n_surrogates: int) -> float:
+    """Device-flop estimate of one full-FFT cohort null
+    (``_fft_null_flops``, ``cohort_null.py:1400-1414``).
+
+    Per surrogate: EMG signal resynthesis (irfft per subject×channel),
+    EMG window taper FFTs, and the cohort MSC map re-evaluation (the EEG
+    window spectra are surrogate-invariant and amortize to zero).
+    """
+    lg = float(np.log2(max(n_samples, 2)))
+    lw = float(np.log2(max(window_samples, 2)))
+    per_surr = J * (5.0 * n_samples * lg * nM                # resynthesis
+                    + 5.0 * window_samples * lw * W * K * nM  # window FFTs
+                    + 8.0 * K * W * nF * nE * nM)             # MSC map
+    return per_surr * n_surrogates
+
+
+SENSITIVITY_NOTE = (
+    "rotation engine (calibrated disjoint inference): measured "
+    "80%-power detectable-coupling floor at most 11% above the "
+    "exact full-FFT engine at every window count in 8..1320 "
+    "(BENCH_NULL_POWER.json detection_limit, cost ratio "
+    "1.08-1.11); near-threshold rejection-rate gap up to 0.45 "
+    "does not vanish with W.")
+
+
+def cohort_msc_null(eeg_cohort, emg_cohort, sampling_freq: float,
+                    n_surrogates: int = 10_000, method: str = "auto",
+                    fft_flop_budget: float | None = None, **kw) -> dict:
+    """Cohort FWE null with automatic engine selection.
+
+    Port of ``mba_tpu.ops.cohort_null.cohort_msc_null`` (:1417-1532).
+    ``'fft'`` (:func:`cohort_msc_fft_null`) lets every window, overlapping
+    ones included, enter the inference exactly, at O(n_surrogates) cohort
+    passes; ``'rotation'`` (:func:`cohort_msc_rotation_null`) precomputes
+    once and draws surrogates as matmuls, on a disjoint window subset.
+    ``method='auto'`` runs the fft engine when :func:`fft_null_flops`
+    fits ``fft_flop_budget`` and the rotation engine otherwise; the
+    default budget is :data:`FFT_FLOP_BUDGET` for the device the call
+    runs on (``kw['device']``, else that of a tensor input, else the CPU).
+
+    ``**kw`` go to the chosen engine; rotation-only options are dropped
+    with a note (``metadata['dropped_rotation_kwargs']``) when the fft
+    engine runs, and the rotation engine's result carries the measured
+    sensitivity cost (``metadata['sensitivity_note']``).
+    ``metadata['engine_choice']`` records what was asked, what ran and
+    why.
+    """
+    if method not in ("auto", "fft", "rotation"):
+        raise ValueError("method must be 'auto', 'fft' or 'rotation', "
+                         f"got {method!r}")
+    if len(np.shape(eeg_cohort)) != 3 or len(np.shape(emg_cohort)) != 3:
+        raise ValueError("cohort arrays must be (J, n_samples, n_channels)")
+    J, n_samples, nE = np.shape(eeg_cohort)
+    nM = np.shape(emg_cohort)[2]
+
+    window_length_sec = kw.get("window_length_sec", 2.0)
+    overlap_frac = kw.get("overlap_frac", 0.5)
+    nw = kw.get("nw", 3)
+    band = kw.get("band", (13.0, 100.0))
+    window_samples = int(window_length_sec * sampling_freq)
+    hop = max(int(window_samples * (1 - overlap_frac)), 1)
+    if kw.get("window_starts") is not None:
+        W = int(np.asarray(kw["window_starts"]).shape[-1])
+    else:
+        W = max((n_samples - window_samples) // hop + 1, 1)
+    nF = max(int((band[1] - band[0]) * window_length_sec), 1)
+    K = max(int(2 * nw - 1), 2)
+
+    choice = method
+    est = fft_null_flops(J, n_samples, nE, nM, W, K, window_samples, nF,
+                         n_surrogates)
+    if method == "auto":
+        if fft_flop_budget is None:
+            device = resolve_device(kw.get("device"), eeg_cohort,
+                                    emg_cohort)
+            if device.type not in FFT_FLOP_BUDGET:
+                raise ValueError(f"no default fft_flop_budget for {device}")
+            fft_flop_budget = FFT_FLOP_BUDGET[device.type]
+        choice = "fft" if est <= fft_flop_budget else "rotation"
+
+    if choice == "fft":
+        fft_kw = dict(kw)
+        dropped = [k for k in ("rotation_mode", "p_value_windows",
+                               "compute_dtype", "transfer_dtype",
+                               "overlap_upload", "precompute_only",
+                               "coeff_engine", "per_window_max_coef_bytes")
+                   if fft_kw.pop(k, None) is not None]
+        fft_kw.setdefault("surrogate_chunk", 8)
+        res = cohort_msc_fft_null(eeg_cohort, emg_cohort, sampling_freq,
+                                  n_surrogates=n_surrogates, **fft_kw)
+        if dropped:
+            res["metadata"]["dropped_rotation_kwargs"] = dropped
+    else:
+        res = cohort_msc_rotation_null(eeg_cohort, emg_cohort,
+                                       sampling_freq,
+                                       n_surrogates=n_surrogates, **kw)
+        res["metadata"]["sensitivity_note"] = SENSITIVITY_NOTE
+    res["metadata"]["engine_choice"] = {
+        "method_requested": method, "method_run": choice,
+        "estimated_fft_flops": est,
+        "fft_flop_budget": fft_flop_budget,
+    }
+    return res

@@ -1,0 +1,141 @@
+"""Kernel B3: the rotation-null pair pass (``csrc/coeff_pairs.cu``).
+
+Replaces the Pallas kernel ``mba_tpu/ops/pallas_coeffs.py:_coeff_tile_kernel``
+(:83-122) and its caller ``coeff_chunk_pallas`` (:125-185).  From the K
+tapered band spectra of one chunk of windows it forms, per window and
+(frequency, EEG, EMG) cell, the power-normalised taper products
+
+    y_k = conj(E_k)·M_k · sqrt(w / max(pe·pm, tiny)),
+
+and sums over the chunk's windows the taper diagonal Σ_k |y_k|² and the
+K(K−1)/2 upper-triangle pair products Re/Im y_k·conj(y_l).  The kernel
+keeps the (wc, K, F, N) products out of device memory; the plain version
+below, the chunk body of the JAX package's scan engine
+(``cohort_null.py:190-233``), materialises them.
+
+:func:`coeff_pairs` is the wrapper: CPU tensors run
+:func:`coeff_pairs_plain`, CUDA tensors launch the kernel or raise.
+``coeff_pairs.launches`` counts kernel launches.
+
+Tolerance, kernel against plain: the window sums divided by the chunk's
+weight sum agree within rtol 2e-5 / atol 2e-6, the bound the JAX package
+holds its Pallas and XLA engines to (``tests/test_pallas_coeffs.py:52``).
+Each window's terms are at most its weight in size (Cauchy-Schwarz over
+the normalised products), and the two versions round them differently
+only because nvcc contracts the products into FMAs and the sums run in
+another order.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mba_tpu_torch import _build
+from mba_tpu_torch.ops.gram_coeffs import _pair_indices
+
+_F32_TINY = float(np.finfo(np.float32).tiny)
+K_MAX = 8            # the kernel is instantiated for 2 <= K <= K_MAX
+
+
+def taper_products(eeg_spec: torch.Tensor, emg_spec: torch.Tensor,
+                   weights: torch.Tensor):
+    """The normalised taper products y_k (``_taper_products``,
+    ``cohort_null.py:190-215``), in its formula order: ``den =
+    max(pe·pm, tiny)``, then ``sqrt(w/den)``.
+
+    eeg_spec (wc, K, F, E) / emg_spec (wc, K, F, M) complex64; weights
+    (wc,) float32.  Returns Re and Im of y, each (wc, K, F, E·M).
+    """
+    wc, K, nF, nE = eeg_spec.shape
+    nM = emg_spec.shape[-1]
+    pe = (eeg_spec.real ** 2 + eeg_spec.imag ** 2).sum(dim=1)  # (wc, F, E)
+    pm = (emg_spec.real ** 2 + emg_spec.imag ** 2).sum(dim=1)  # (wc, F, M)
+    den = torch.clamp_min(pe[..., :, None] * pm[..., None, :], _F32_TINY)
+    sc = torch.sqrt(weights[:, None, None, None] / den)[:, None]
+    Er, Ei = eeg_spec.real[..., :, None], eeg_spec.imag[..., :, None]
+    Mr, Mi = emg_spec.real[..., None, :], emg_spec.imag[..., None, :]
+    yr = ((Er * Mr + Ei * Mi) * sc).reshape(wc, K, nF, nE * nM)
+    yi = ((Er * Mi - Ei * Mr) * sc).reshape(wc, K, nF, nE * nM)
+    return yr, yi
+
+
+def coeff_pairs_plain(eeg_spec: torch.Tensor, emg_spec: torch.Tensor,
+                      weights: torch.Tensor):
+    """Plain PyTorch version: ``cw_body`` (``cohort_null.py:217-233``).
+
+    Shapes as :func:`taper_products`.  Returns ``(diag (F, N), pr (P2,
+    F, N), pi (P2, F, N))`` float32, summed over the windows.
+    """
+    yr, yi = taper_products(eeg_spec, emg_spec, weights)
+    diag = (yr * yr + yi * yi).sum(dim=(0, 1))
+    ks, ls = _pair_indices(yr.shape[1])
+    pr = torch.stack([(yr[:, k] * yr[:, l] + yi[:, k] * yi[:, l]).sum(dim=0)
+                      for k, l in zip(ks, ls)])
+    pi = torch.stack([(yi[:, k] * yr[:, l] - yr[:, k] * yi[:, l]).sum(dim=0)
+                      for k, l in zip(ks, ls)])
+    return diag, pr, pi
+
+
+def _check(eeg_spec, emg_spec, weights) -> None:
+    for name, x in (("eeg_spec", eeg_spec), ("emg_spec", emg_spec)):
+        if x.dtype != torch.complex64:
+            raise TypeError(f"{name} must be complex64, got {x.dtype}")
+        if x.ndim != 4:
+            raise ValueError(f"{name} must be (wc, K, F, C), got "
+                             f"{tuple(x.shape)}")
+    if weights.dtype != torch.float32:
+        raise TypeError(f"weights must be float32, got {weights.dtype}")
+    for name, x in (("eeg_spec", eeg_spec), ("emg_spec", emg_spec),
+                    ("weights", weights)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if x.device != eeg_spec.device:
+            raise ValueError(f"{name} lies on {x.device}, eeg_spec on "
+                             f"{eeg_spec.device}")
+    if eeg_spec.shape[:3] != emg_spec.shape[:3]:
+        raise ValueError(f"spectra disagree on (wc, K, F): "
+                         f"{tuple(eeg_spec.shape)} vs {tuple(emg_spec.shape)}")
+    if tuple(weights.shape) != (eeg_spec.shape[0],):
+        raise ValueError(f"weights must be ({eeg_spec.shape[0]},), got "
+                         f"{tuple(weights.shape)}")
+    K = eeg_spec.shape[1]
+    if not 2 <= K <= K_MAX:
+        raise ValueError(f"kernel supports 2 <= K <= {K_MAX} tapers, got {K}")
+
+
+def coeff_pairs(eeg_spec: torch.Tensor, emg_spec: torch.Tensor,
+                weights: torch.Tensor):
+    """Window sums of the normalised taper products (module docstring).
+
+    eeg_spec (wc, K, F, E) / emg_spec (wc, K, F, M) complex64, contiguous;
+    weights (wc,) float32.  Returns ``(diag (F, N), pr (P2, F, N), pi
+    (P2, F, N))`` float32, N = E·M.
+    """
+    _check(eeg_spec, emg_spec, weights)
+    if eeg_spec.device.type == "cpu":
+        return coeff_pairs_plain(eeg_spec, emg_spec, weights)
+    if eeg_spec.device.type != "cuda":
+        raise ValueError(f"unsupported device {eeg_spec.device}")
+    wc, K, nF, nE = eeg_spec.shape
+    nM = emg_spec.shape[-1]
+    P2 = K * (K - 1) // 2
+    dev = eeg_spec.device
+    diag = torch.empty((nF, nE * nM), dtype=torch.float32, device=dev)
+    pr = torch.empty((P2, nF, nE * nM), dtype=torch.float32, device=dev)
+    pi = torch.empty_like(pr)
+    if nF * nE * nM == 0:
+        return diag, pr, pi
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.mba_coeff_pairs(
+            torch.view_as_real(eeg_spec).data_ptr(),
+            torch.view_as_real(emg_spec).data_ptr(), weights.data_ptr(),
+            diag.data_ptr(), pr.data_ptr(), pi.data_ptr(),
+            wc, K, nF, nE, nM, stream)
+    _build.check_launch(lib, code, "mba_coeff_pairs")
+    coeff_pairs.launches += 1
+    return diag, pr, pi
+
+
+coeff_pairs.launches = 0

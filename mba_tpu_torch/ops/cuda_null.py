@@ -23,13 +23,14 @@ CELL_TILE = 64       # cells per block: BN in csrc/null_tile.cu
 def prepare_null_coeffs(coef_all: torch.Tensor) -> torch.Tensor:
     """One-time relayout for the kernel (``pallas_null.py:137-150``).
 
-    coef_all: (J, nF, N, P) float32 → coefT (nF, J·P, N) float32,
-    contiguous.  Unlike the TPU layout, J·P is not padded: the kernel
-    masks its ragged last slice.
+    coef_all: (..., J, nF, N, P) float32 → coefT (..., nF, J·P, N)
+    float32, contiguous (a leading window axis of the per-window mode is
+    kept).  Unlike the TPU layout, J·P is not padded: the kernel masks
+    its ragged last slice.
     """
-    J, nF, N, P = coef_all.shape
-    return (coef_all.permute(1, 0, 3, 2).reshape(nF, J * P, N)
-            .to(torch.float32).contiguous())
+    *lead, J, nF, N, P = coef_all.shape
+    return (coef_all.movedim(-1, -2).movedim(-4, -3)
+            .reshape(*lead, nF, J * P, N).to(torch.float32).contiguous())
 
 
 def null_features(G_jsfp: torch.Tensor) -> torch.Tensor:
@@ -39,13 +40,19 @@ def null_features(G_jsfp: torch.Tensor) -> torch.Tensor:
     return G_jsfp.permute(2, 1, 0, 3).reshape(nF, S, J * P).contiguous()
 
 
+def null_epilogue(stat: torch.Tensor, obs: torch.Tensor):
+    """(nF, S, N) surrogate statistic → (max_stat (S,), counts (nF, N)):
+    the per-surrogate max and the per-cell exceedances of ``obs``."""
+    max_stat = stat.amax(dim=(0, 2))
+    counts = (stat >= obs[:, None, :]).sum(dim=1, dtype=torch.int32)
+    return max_stat, counts
+
+
 def null_tile_plain(G: torch.Tensor, coefT: torch.Tensor,
                     base: torch.Tensor, obs: torch.Tensor, J: int):
     """Plain PyTorch version: returns (max_stat (S,), counts (nF, N))."""
     stat = base[:, None, :] + torch.bmm(G, coefT) * (1.0 / J)  # (nF,S,N)
-    max_stat = stat.amax(dim=(0, 2))
-    counts = (stat >= obs[:, None, :]).sum(dim=1, dtype=torch.int32)
-    return max_stat, counts
+    return null_epilogue(stat, obs)
 
 
 def _check(G, coefT, base, obs) -> None:

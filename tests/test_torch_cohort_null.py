@@ -199,13 +199,9 @@ def test_rotation_null_precompute_only_and_adc_passthrough():
 
 @pytest.mark.parametrize("kw", [
     dict(mesh=object()),
-    dict(rotation_mode="per_window"),
-    dict(coeff_engine="pallas"),
-    dict(coeff_engine="xla"),
     dict(compute_dtype=torch.bfloat16),
     dict(transfer_dtype=np.int16),          # float input: host quantizer
     dict(transfer_dtype=np.float16),
-    dict(overlap_upload=False),
 ])
 def test_unsupported_options_raise(kw):
     eeg, emg = _cohort(J=1, n_sec=8.0)

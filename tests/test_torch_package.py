@@ -26,7 +26,7 @@ import mba_tpu_torch
 from mba_tpu_torch import _build
 from mba_tpu_torch.ops import cohort_null as TN
 from mba_tpu_torch.ops import coherence as TC
-from mba_tpu_torch.ops import cuda_msc, cuda_null
+from mba_tpu_torch.ops import cuda_coeffs, cuda_msc, cuda_null
 from mba_tpu_torch.ops.dpss import filtered_tapers
 from mba_tpu_torch.ops.framing import frame_signal, window_grid
 
@@ -62,6 +62,8 @@ def test_package_imports_neither_jax_nor_mba_tpu():
     (tests/conftest.py), so only a subprocess can tell."""
     names = _module_names()
     assert {"mba_tpu_torch.ops.cuda_msc", "mba_tpu_torch.ops.cuda_null",
+            "mba_tpu_torch.ops.cuda_coeffs",
+            "mba_tpu_torch.ops.rotation_coeffs",
             "mba_tpu_torch.convert"} <= set(names)
     code = (f"import importlib, sys\n"
             f"for name in {names!r}:\n"
@@ -81,17 +83,65 @@ def test_importing_builds_nothing():
 
 
 def test_build_command_targets_sm90a_without_fast_math(tmp_path):
+    """One compile command per source, then one link command; sm_90a,
+    no fast math and no flush-to-zero (B3 clamps denormal powers as the
+    CPU does)."""
     srcs = _build.sources()
-    assert {p.name for p in srcs} == {"msc_jackknife.cu", "null_tile.cu"}
-    cmd = _build.build_command(tmp_path / "lib.so", srcs, "nvcc")
-    assert cmd[0] == "nvcc"
+    assert {p.name for p in srcs} == {"msc_jackknife.cu", "null_tile.cu",
+                                      "coeff_pairs.cu"}
+    for src in srcs:
+        cmd = _build.compile_command(tmp_path / "k.o", src, "nvcc")
+        assert cmd[0] == "nvcc" and cmd[-1] == str(src)
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert not any("fast_math" in c or "fast-math" in c or "ftz" in c
+                       for c in cmd)
+        for flag in ("-O3", "-c", "-std=c++17", "-fPIC"):
+            assert flag in cmd
+    objs = [tmp_path / "a.o", tmp_path / "b.o"]
+    cmd = _build.link_command(tmp_path / "lib.so", objs, "nvcc")
+    assert cmd[0] == "nvcc" and "-shared" in cmd
     assert "arch=compute_90a,code=sm_90a" in cmd
-    assert not any("fast_math" in c or "fast-math" in c for c in cmd)
-    for flag in ("-O3", "-shared", "-std=c++17"):
-        assert flag in cmd
-    assert [str(p) for p in srcs] == cmd[-len(srcs):]
+    assert [str(p) for p in objs] == cmd[-2:]
     assert _build.library_path().parent == _build.BUILD_DIR
     assert _build.library_path().name.startswith("libmba_kernels_")
+
+
+_FAKE_NVCC = """#!/bin/sh
+# stands in for nvcc: writes its -o target, or fails on request
+out=""; prev=""
+for a in "$@"; do
+  [ "$prev" = "-o" ] && out="$a"
+  prev="$a"
+done
+case "$*" in *{fail}*) echo "error in {fail}" >&2; exit 2;; esac
+echo "$*" > "$out"
+"""
+
+
+def _fake_build(tmp_path, monkeypatch, fail="never-matches"):
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(_FAKE_NVCC.replace("{fail}", fail))
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(nvcc))
+    return _build.build
+
+
+def test_build_compiles_each_source_then_links(tmp_path, monkeypatch):
+    out = _fake_build(tmp_path, monkeypatch)()
+    assert out == _build.library_path() and out.exists()
+    link = out.read_text().split()
+    objs = [a for a in link if a.endswith(".o")]
+    assert "-shared" in link and len(objs) == len(_build.sources())
+    # the objects and the private library name are gone
+    assert sorted(p.name for p in out.parent.iterdir()) == [out.name]
+    assert _build.build() == out                 # built once
+
+
+def test_build_failure_names_the_source(tmp_path, monkeypatch):
+    with pytest.raises(RuntimeError, match="coeff_pairs.cu"):
+        _fake_build(tmp_path, monkeypatch, fail="coeff_pairs.cu")()
+    assert not list((tmp_path / "build").iterdir())
 
 
 def test_cpu_tensors_take_the_plain_msc_epilogue():
@@ -306,3 +356,83 @@ def test_rotation_null_on_card_runs_the_kernel(cuda):
     assert got["max_stat"].shape == (600,)
     assert np.isfinite(got["max_stat"]).all()
     assert got["metadata"]["n_surrogates_drawn"] == 768
+
+
+def _coeff_spectra(seed, wc, K, nF, nE, nM, device):
+    """Random complex64 band spectra and weights with zero-weight
+    windows, on ``device``."""
+    rng = np.random.default_rng(seed)
+
+    def cplx(*shape):
+        return torch.from_numpy((rng.standard_normal(shape)
+                                 + 1j * rng.standard_normal(shape))
+                                .astype(np.complex64)).to(device)
+    w = rng.uniform(0.5, 2.0, wc).astype(np.float32)
+    w[::3] = 0.0
+    return (cplx(wc, K, nF, nE), cplx(wc, K, nF, nM),
+            torch.from_numpy(w).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,wc,nF,nE,nM", [
+    (3, 7, 5, 3, 5),          # small M: 8 EMG lanes, 32 EEG rows a block
+    (5, 32, 17, 64, 64),      # the main path's tile shape
+    (5, 9, 3, 5, 70),         # M > 64: two EMG tiles, the second ragged
+    (8, 6, 4, 11, 37),        # K = 8: 57 sums a thread
+])
+def test_coeff_kernel_matches_plain_on_card(cuda, K, wc, nF, nE, nM):
+    """Window sums over the chunk's weight sum within rtol 2e-5 / atol
+    2e-6 (``cuda_coeffs`` module docstring: each window's terms are at
+    most its weight in size; FMA contraction and the order of the sums
+    differ).  Every third window has weight 0."""
+    e, m, w = _coeff_spectra(K + wc, wc, K, nF, nE, nM, cuda)
+    before = cuda_coeffs.coeff_pairs.launches
+    got = cuda_coeffs.coeff_pairs(e, m, w)
+    torch.cuda.synchronize()
+    assert cuda_coeffs.coeff_pairs.launches == before + 1
+    ref = cuda_coeffs.coeff_pairs_plain(e, m, w)
+    wsum = float(w.sum())
+    for a, b in zip(got, ref):
+        assert tuple(a.shape) == tuple(b.shape)
+        assert bool(torch.isfinite(a).all())
+        np.testing.assert_allclose(a.cpu().numpy() / wsum,
+                                   b.cpu().numpy() / wsum,
+                                   rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.cuda
+def test_coeff_kernel_zero_weight_and_nan(cuda):
+    """A zero-weight window adds exact zeros; a NaN spectrum in one makes
+    that cell's sums NaN, as the plain version (no fmaxf clamp)."""
+    e, m, w = _coeff_spectra(1, 4, 3, 6, 2, 3, "cpu")
+    w[:] = torch.tensor([1.0, 0.0, 2.0, 0.5])
+    e[1, 0, 4, 1] = complex(float("nan"), 0.0)
+    got = [x.cpu() for x in cuda_coeffs.coeff_pairs(
+        e.to(cuda), m.to(cuda), w.to(cuda))]
+    ref = cuda_coeffs.coeff_pairs_plain(e, m, w)
+    for a, b in zip(got, ref):
+        nan = torch.isnan(b)
+        assert torch.equal(torch.isnan(a), nan) and nan.any()
+        np.testing.assert_allclose(a[~nan].numpy(), b[~nan].numpy(),
+                                   rtol=2e-5, atol=2e-6 * 3.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(coeff_engine="pallas"),
+                                dict(coeff_engine="xla"),
+                                dict(rotation_mode="per_window")])
+def test_rotation_engines_on_card_match_cpu(cuda, kw):
+    subj = [cohort_subject(20 + j, n_sec=12.0, couple=2.0) for j in range(2)]
+    eeg = np.stack([s[0] for s in subj])
+    emg = np.stack([s[1] for s in subj])
+    args = dict(sampling_freq=256.0, band=(8.0, 60.0), n_surrogates=600,
+                surrogate_chunk=256, window_chunk=4, **kw)
+    before = cuda_coeffs.coeff_pairs.launches
+    got = TN.cohort_msc_rotation_null(eeg, emg, device=cuda, **args)
+    n_launched = cuda_coeffs.coeff_pairs.launches - before
+    assert n_launched == (6 if kw.get("coeff_engine") == "pallas" else 0)
+    ref = TN.cohort_msc_rotation_null(eeg, emg, **args)
+    np.testing.assert_allclose(got["observed"], ref["observed"],
+                               rtol=2e-5, atol=2e-6)
+    assert got["max_stat"].shape == (600,)
+    assert np.isfinite(got["max_stat"]).all()
