@@ -31,11 +31,22 @@ result):
    200 surrogates, whose flop rate sets the CUDA default of
    ``cohort_msc_null``'s ``fft_flop_budget``; both must detect the
    planted coupling;
-7. one JSON line describing the kernels, then the result line
+7. the feature-extraction stage and the phase-randomised null: (f) each
+   entry point small on the card against the CPU; (g) one subject at
+   study scale (1 698 s at 2048 Hz, 64-ch EEG and two 64-ch EMG grids):
+   the log10 PSD of all three kept on the card and reduced to band
+   aggregates there, then the task-wise CMC of the 11-channel motor
+   subset against each grid with kernel B1 (its launch count set to 0
+   before and read after; the CMC must peak in the planted 15-30 Hz
+   band); (h) B1 against its plain version at that narrow montage,
+   11×64; (i) bench.py's config 4, the single-pair 10 000-surrogate
+   phase null, uncoupled (p_fwe ≥ 0.01) and coupled (p_fwe < 0.01);
+8. one JSON line describing the kernels, then the result line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 from __future__ import annotations
 
+import datetime
 import json
 import subprocess
 import sys
@@ -49,9 +60,13 @@ from mba_tpu_torch import _build
 from mba_tpu_torch.ops import cohort_null as TN
 from mba_tpu_torch.ops import coherence as TC
 from mba_tpu_torch.ops import cuda_coeffs, cuda_msc, cuda_null
+from mba_tpu_torch.ops import spectral as TS
+from mba_tpu_torch.ops import surrogate as TSu
 from mba_tpu_torch.ops.dpss import filtered_tapers
 from mba_tpu_torch.ops.framing import frame_signal, window_grid
 from mba_tpu_torch.ops.rotation_coeffs import band_spectra
+from mba_tpu_torch.pipeline import signal_features as TF
+from mba_tpu_torch.pipeline.cbpa import CMC_EEG_CHANNEL_SUBSET
 
 FS = 2048.0
 SECONDS = 120.0
@@ -70,11 +85,28 @@ PW_SURROGATES = 2000
 FFT_SUBJECTS, FFT_SECONDS, FFT_SURROGATES = 2, 12.0, 200
 FFT_BUDGET_SEC = 3.0    # cohort_msc_null's CUDA budget: ~3 s of this phase
 
+# one subject's recording (bench.py:314-323): 30 trials of 45 s with 12-s
+# silences between them, 1 698 s; the feature-extraction settings of
+# subject_feature_extraction_workflow (PSD 0.25-s windows; CMC 2-s
+# windows, 3-s buffers, 3.25-s latency, 2-s end cut)
+N_TRIALS, TRIAL_SEC, SILENCE_SEC = 30, 45.0, 12.0
+PSD_WINDOW_SEC = 0.25
+CMC_BUFFER_SEC, TASK_LATENCY_SEC, TASK_END_CUT_SEC = 3.0, 3.25, 2.0
+# bench.py config 4 (bench.py:203-225): one pair, 120 s, 10 000 surrogates
+PHASE_SURROGATES, PHASE_CHUNK, PHASE_COUPLED_SURROGATES = 10_000, 250, 1000
+
 MSC_ATOL = 5e-5         # Pallas vs XLA, tests/test_ops_coherence.py:217
 NULL_TOL = 1e-5         # max_stat, rel and abs
 COEFF_RTOL, COEFF_ATOL = 2e-5, 2e-6   # B3 sums / weight sum, cuda_coeffs.py
 GRAM_RTOL, GRAM_ATOL = 2e-4, 2e-5     # × max; tests/test_gram_coeffs.py:65
 TIE_FRACTION = 1e-4     # cells whose argmax pick or count may differ
+# the feature stage's CPU tests (tests/test_torch_{spectral,signal_
+# features,surrogate}.py)
+PSD_RTOL, PSD_ATOL_REL, LOG_PSD_ATOL = 1e-4, 1e-6, 1e-4
+WELCH_RTOL = 1e-4
+BAND_RTOL, BAND_ATOL = 1e-6, 1e-7
+PHASE_MAX_RTOL, PHASE_MAX_ATOL = 1e-4, 5e-5
+QUANTILE_CELLS = 1e-3   # cells whose null quantile may move by one bin
 
 
 def log(msg: str) -> None:
@@ -321,11 +353,8 @@ def check_coeff_kernel(cohort, device, reps=10) -> dict:
 
 def _require_close_observed(got, ref, what) -> None:
     """Observed maps within the gram tolerance."""
-    sc = float(np.abs(ref).max())
-    err = float(np.abs(got - ref).max())
-    log(json.dumps({"check": what, "max_abs_err": err}))
-    _require(np.allclose(got, ref, rtol=GRAM_RTOL, atol=GRAM_ATOL * sc),
-             f"{what}: {err}")
+    _require_close(what, got, ref, GRAM_RTOL,
+                   GRAM_ATOL * float(np.abs(ref).max()))
 
 
 def check_small_against_cpu(device) -> None:
@@ -458,6 +487,325 @@ def run_fft_null(cohort, device) -> dict:
             "fft_flop_budget_cuda": TN.FFT_FLOP_BUDGET["cuda"]}
 
 
+_DRAW_PHASES = TSu.draw_chunk_phases
+
+
+def _cpu_phase_draw(seed):
+    """A stand-in for ``surrogate.draw_chunk_phases`` that draws each
+    chunk's phases on the CPU from one fresh generator, so the card and
+    the CPU null get the same phases."""
+    gen = torch.Generator().manual_seed(seed)
+    return lambda _gen, s, f, m, device: _DRAW_PHASES(gen, s, f, m,
+                                                      "cpu").to(device)
+
+
+def _require_close(what, got, ref, rtol, atol, equal_nan=False) -> None:
+    """|got − ref| ≤ atol + rtol·|ref| everywhere (NaN where ``ref`` is
+    NaN, with ``equal_nan``); logs the largest difference."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    _require(got.shape == ref.shape, f"{what}: shape {got.shape} vs "
+             f"{ref.shape}")
+    d = np.abs(got.astype(np.float64) - ref)
+    ok = d <= atol + rtol * np.abs(ref)
+    if equal_nan:
+        ok = np.where(np.isnan(ref), np.isnan(got), ok)
+    err = float(np.nanmax(d)) if d.size else 0.0
+    log(json.dumps({"check": what, "max_abs_err": err, "rtol": rtol,
+                    "atol": atol}))
+    _require(bool(ok.all()), f"{what}: {err}")
+
+
+def _require_ci_close(what, got, ref, tol) -> None:
+    """EMG-max CIs within ``tol`` (``cuda_msc.ci_tolerance`` of the
+    largest replicate over EMG) but in at most TIE_FRACTION of the
+    cells, where near-tied EMG channels may be picked differently."""
+    over = float((np.abs(got - ref) > tol).mean())
+    log(json.dumps({"check": what, "max_abs_err": float(np.abs(got - ref)
+                                                        .max()),
+                    "cells_over_tolerance": over}))
+    _require(over <= TIE_FRACTION, f"{what}: {over:.2e} of cells differ")
+
+
+def check_features_small_against_cpu(device) -> None:
+    """(f) The feature stage and the phase null on a small input (8
+    channels, a few seconds), on the card and on the CPU, with the CPU
+    tests' tolerances: the multitaper PSD (linear and log10), Welch, the
+    amplitude spectrum, the band aggregates of the card's spectrogram
+    against the host path (NaN bins included), the task-wise CMC with a
+    window mask in the fused and the threshold mode, and the phase null
+    with the same phases injected on both."""
+    eeg, emg = make_signals(2, 8, 8, 6.0)
+    for log_scale in (False, True):
+        kw = dict(nw=NW, window_length_sec=PSD_WINDOW_SEC,
+                  overlap_frac=OVERLAP, axis=0, apply_log_scale=log_scale)
+        spec, _, freqs = TS.multitaper_psd(eeg, FS, device=device,
+                                           device_output=True, **kw)
+        ref = TS.multitaper_psd(eeg, FS, device="cpu", **kw)[0]
+        _require(spec.device.type == "cuda", "multitaper_psd left the card")
+        _require_close(f"multitaper_psd small log10={log_scale}, card vs cpu",
+                       spec.cpu().numpy(), ref, 0.0 if log_scale else PSD_RTOL,
+                       LOG_PSD_ATOL if log_scale
+                       else PSD_ATOL_REL * float(np.abs(ref).max()))
+    spec[1] = float("nan")
+    spec[2, 3:9, 0] = float("nan")
+    payload, names, _ = TF.band_aggregate_spectrogram(spec, freqs)
+    host, names_h, _ = TF.band_aggregate_spectrogram(spec.cpu().numpy(),
+                                                     freqs)
+    _require(payload.device.type == "cuda" and names == names_h,
+             "band aggregates: not on the card, or other bands")
+    _require_close("band aggregates small, card vs host",
+                   payload.cpu().numpy(), host, BAND_RTOL, BAND_ATOL,
+                   equal_nan=True)
+    _require_close("welch_psd small, card vs cpu",
+                   TS.welch_psd(eeg, FS, int(FS), device=device)[1],
+                   TS.welch_psd(eeg, FS, int(FS), device="cpu")[1],
+                   WELCH_RTOL, 0.0)
+    amp = TS.amplitude_spectrum(eeg, FS, device="cpu")[0]
+    _require_close("amplitude_spectrum small, card vs cpu",
+                   TS.amplitude_spectrum(eeg, FS, device=device)[0], amp,
+                   0.0, 1e-6 * float(amp.max()))
+
+    ws = int(WINDOW_SEC * FS)
+    starts, _ = window_grid(len(eeg), ws, int(ws * (1 - OVERLAP)), FS)
+    mask = np.ones(len(starts), bool)
+    mask[2] = False
+    tap = torch.as_tensor(filtered_tapers(ws, NW, 0.9), dtype=torch.float32)
+    e, m = (TC.tapered_rfft(frame_signal(torch.from_numpy(x), starts, ws),
+                            tap) for x in (eeg, emg))
+    tol = cuda_msc.ci_tolerance(
+        cuda_msc.loo_coherence_max(e, m).numpy().max(-1), MSC_ATOL)
+    for threshold in (False, True):
+        kw = dict(window_size_sec=WINDOW_SEC, window_overlap_ratio=OVERLAP,
+                  window_mask=mask, enforce_independence_threshold=threshold,
+                  independence_threshold_alpha=1 - 1e-9)
+        got = TF.compute_task_wise_aggregated_cmc(eeg, emg, int(FS), "flexor",
+                                                  device=device, **kw)
+        ref = TF.compute_task_wise_aggregated_cmc(eeg, emg, int(FS), "flexor",
+                                                  device="cpu", **kw)
+        mode = "threshold" if threshold else "fused"
+        _require_close(f"task-wise CMC small {mode}, card vs cpu: "
+                       "coherence", got[0], ref[0], 0.0, MSC_ATOL)
+        for i, key in ((1, "ci_lower"), (2, "ci_upper")):
+            _require_ci_close(f"task-wise CMC small {mode}, card vs cpu: "
+                              f"{key}", got[i], ref[i], tol)
+        _require(bool((got[0][~mask] == 0).all()),
+                 "task-wise CMC: a masked window is not zero")
+
+    pe, pm = make_signals(3, 2, 2, 8.0)
+    kw = dict(window_length_sec=WINDOW_SEC, n_surrogates=200,
+              surrogate_chunk=64, band=BAND)
+    res = []
+    for dev in (device, "cpu"):
+        TSu.draw_chunk_phases = _cpu_phase_draw(5)
+        res.append(TSu.msc_phase_randomized_null(pe, pm, FS, device=dev,
+                                                 **kw))
+    TSu.draw_chunk_phases = _DRAW_PHASES
+    got, ref = res
+    _require_close("phase null small, card vs cpu: observed",
+                   got["observed"], ref["observed"], 0.0, MSC_ATOL)
+    _require_close("phase null small, card vs cpu: max_stat",
+                   got["max_stat"], ref["max_stat"], PHASE_MAX_RTOL,
+                   PHASE_MAX_ATOL)
+    _require(got["p_fwe"] == ref["p_fwe"], f"phase null small: p_fwe "
+             f"{got['p_fwe']} vs {ref['p_fwe']}")
+    for q, r in ref["null_quantiles"].items():
+        d = np.abs(got["null_quantiles"][q] - r) * TSu.N_BINS
+        log(json.dumps({"check": f"phase null small, card vs cpu: "
+                        f"null_quantiles[{q}]", "bins_max_diff":
+                        float(d.max()), "cells_differ": float(
+                            (d > 0).mean())}))
+        _require(d.max() <= 1 and (d > 0).mean() <= QUANTILE_CELLS,
+                 f"phase null small: quantile {q} differs")
+
+
+def make_recording(seed=4):
+    """(g)'s input: one subject at study scale (bench.py:314-323), 64-ch
+    EEG and two 64-ch EMG grids of unit float32 noise, 0.89 GB each,
+    with a shared 15-30 Hz drive (amplitude 0.4, as :func:`make_signals`)
+    during the trials only.  Returns (eeg, flexor, extensor, trial
+    starts in seconds)."""
+    rng = np.random.default_rng(seed)
+    hop = TRIAL_SEC + SILENCE_SEC
+    n = int(FS * (N_TRIALS * hop - SILENCE_SEC))
+    spec = np.fft.rfft(rng.standard_normal(n))
+    f = np.fft.rfftfreq(n, 1 / FS)
+    spec[(f < 15) | (f > 30)] = 0
+    shared = np.fft.irfft(spec, n=n)
+    shared /= shared.std() + 1e-12
+    trial_starts = np.arange(N_TRIALS) * hop
+    on = np.zeros(n, bool)
+    for t0 in trial_starts:
+        on[int(t0 * FS):int((t0 + TRIAL_SEC) * FS)] = True
+    drive = (0.4 * shared * on).astype(np.float32)[:, None]
+    arrays = []
+    for n_ch in (N_EEG, N_EMG, N_EMG):
+        x = rng.standard_normal((n, n_ch), dtype=np.float32)
+        x += drive
+        arrays.append(x)
+    return arrays[0], arrays[1], arrays[2], trial_starts
+
+
+def _in_trials(centers, trial_starts):
+    return np.any((centers[:, None] >= trial_starts)
+                  & (centers[:, None] <= trial_starts + TRIAL_SEC), axis=1)
+
+
+def run_psd(recording, device) -> dict:
+    """(g), PSD: the three arrays as ``extract_psd_features`` computes
+    them (0.25-s windows, nw 3, 50 % overlap, log10), kept on the card
+    (``device_output``) and reduced there to the band aggregates.  Per
+    array: upload (``torch.from_numpy(x).to(card)``), compute (PSD and
+    band aggregates) and download (the aggregates).  The EEG's card
+    aggregates are held to the host path on its downloaded spectrogram;
+    in the trials the beta band must stand above gamma."""
+    eeg, flexor, extensor, trial_starts = recording
+    out = {}
+    for modality, x in (("eeg", eeg), ("emg_1_flexor", flexor),
+                        ("emg_2_extensor", extensor)):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        xd = torch.from_numpy(x).to(device)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        spec, tc, freqs = TF.multitaper_psd(
+            xd, FS, nw=NW, window_length_sec=PSD_WINDOW_SEC,
+            overlap_frac=OVERLAP, axis=0, apply_log_scale=True,
+            device_output=True)
+        payload, names, _ = TF.band_aggregate_spectrogram(spec, freqs)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        agg = payload.cpu().numpy()
+        t3 = time.perf_counter()
+        ws = int(PSD_WINDOW_SEC * FS)
+        _require(tuple(spec.shape) == (len(tc), ws // 2 + 1, x.shape[1])
+                 and agg.shape == (len(tc), len(names), x.shape[1], 2),
+                 f"PSD {modality}: shapes {tuple(spec.shape)}, {agg.shape}")
+        _require(bool(np.isfinite(agg).all()), f"PSD {modality}: non-finite")
+        trial = _in_trials(tc, trial_starts)
+        mean = agg[..., 0]
+        beta_over_gamma = float(
+            (mean[trial, names.index("beta")]
+             - mean[trial, names.index("gamma")]).mean())
+        _require(beta_over_gamma > 0.3, f"PSD {modality}: beta stands "
+                 f"{beta_over_gamma} log10 above gamma in the trials")
+        out[modality] = {
+            "wall_sec": t3 - t0, "upload_sec": t1 - t0,
+            "compute_sec": t2 - t1, "download_sec": t3 - t2,
+            "n_windows": len(tc), "spectrogram_gb": spec.numel() * 4 / 1e9,
+            "beta_minus_gamma_log10": beta_over_gamma,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if modality == "eeg":
+            host = TF.band_aggregate_spectrogram(spec.cpu().numpy(),
+                                                 freqs)[0]
+            _require_close("PSD band aggregates at study scale, card vs "
+                           "host", agg, host, BAND_RTOL, BAND_ATOL,
+                           equal_nan=True)
+        del xd, spec, payload
+    return out
+
+
+def run_task_cmc(recording, device) -> dict:
+    """(g), CMC: task-wise jackknifed CMC of the 11-channel motor subset
+    against each EMG grid, 2-s windows, the window mask from the 30
+    trial spans (3.25-s latency, 2-s end cut, 3-s buffers), the fused
+    EMG max (kernel B1).  The mean EMG-max coherence over the active
+    windows must peak in 15-30 Hz."""
+    eeg, flexor, extensor, trial_starts = recording
+    start = datetime.datetime(2024, 1, 1, tzinfo=datetime.timezone.utc)
+    at = lambda s: start + datetime.timedelta(seconds=float(s))
+    spans = [(at(s + TASK_LATENCY_SEC),
+              at(s + TRIAL_SEC + TASK_LATENCY_SEC - TASK_END_CUT_SEC))
+             for s in trial_starts]
+    ws = int(WINDOW_SEC * FS)
+    hop = int(ws * (1 - OVERLAP))
+    n_windows = (len(eeg) - ws) // hop + 1
+    centers = (np.arange(n_windows) * hop + ws / 2) / FS
+    mask = TF.task_window_mask_from_spans(centers, spans, start,
+                                          CMC_BUFFER_SEC, CMC_BUFFER_SEC,
+                                          verbose=False)
+    out = {}
+    for muscle, emg in (("flexor", flexor), ("extensor", extensor)):
+        torch.cuda.reset_peak_memory_stats()
+        timings = {}
+        t0 = time.perf_counter()
+        vals, lo, hi, _, freqs = TF.compute_task_wise_aggregated_cmc(
+            eeg, emg, int(FS), muscle,
+            eeg_channel_subset=CMC_EEG_CHANNEL_SUBSET,
+            window_size_sec=WINDOW_SEC, window_overlap_ratio=OVERLAP,
+            use_jackknife=True, window_mask=mask, timings_out=timings,
+            device=device)
+        wall = time.perf_counter() - t0
+        E = len(CMC_EEG_CHANNEL_SUBSET)
+        _require(vals.shape == (n_windows, ws // 2 + 1, E)
+                 and lo.shape == hi.shape == vals.shape,
+                 f"task CMC {muscle}: shape {vals.shape}")
+        _require(bool(np.isfinite(vals).all() and np.isfinite(lo).all()
+                      and np.isfinite(hi).all()),
+                 f"task CMC {muscle}: non-finite values")
+        _require(bool((lo <= vals).all() and (vals <= hi).all()),
+                 f"task CMC {muscle}: CIs do not contain the estimate")
+        _require(bool((vals[~mask] == 0).all()),
+                 f"task CMC {muscle}: a masked window is not zero")
+        spectrum = vals[mask].mean(axis=(0, 2))
+        f_peak = float(freqs[int(np.argmax(spectrum[1:])) + 1])
+        _require(15.0 <= f_peak <= 30.0,
+                 f"task CMC {muscle} peaks at {f_peak} Hz")
+        out[muscle] = {"wall_sec": wall, "n_windows": n_windows,
+                       "n_active_windows": int(mask.sum()),
+                       "peak_hz": f_peak, "timings": timings,
+                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return out
+
+
+def run_phase_null(device) -> dict:
+    """(i) bench.py config 4 (bench.py:203-225): one pair, 120 s at 2048
+    Hz, 2-s windows, 50 % overlap, 10 000 surrogates in chunks of 250,
+    histogram on, after one warm chunk.  Uncoupled white noise
+    (bench.py:209-212) must give p_fwe ≥ 0.01; a pair sharing a
+    stochastic 15-30 Hz drive, 1 000 surrogates, p_fwe < 0.01."""
+    n = int(FS * SECONDS)
+    rng = np.random.default_rng(3)
+    eeg = rng.standard_normal((n, 1)).astype(np.float32)
+    emg = rng.standard_normal((n, 1)).astype(np.float32)
+    kw = dict(window_length_sec=WINDOW_SEC, surrogate_chunk=PHASE_CHUNK,
+              device=device)
+    TSu.msc_phase_randomized_null(eeg, emg, FS, n_surrogates=PHASE_CHUNK,
+                                  **kw)
+    out = {}
+    for name, pair, n_surr in (
+            ("uncoupled", (eeg, emg), PHASE_SURROGATES),
+            ("coupled", make_signals(5, 1, 1, SECONDS),
+             PHASE_COUPLED_SURROGATES)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = TSu.msc_phase_randomized_null(*pair, FS, n_surrogates=n_surr,
+                                            **kw)
+        wall = time.perf_counter() - t0
+        F = int(WINDOW_SEC * FS) // 2 + 1
+        _require(res["max_stat"].shape == (n_surr,)
+                 and res["observed"].shape == (F, 1, 1)
+                 and res["null_quantiles"][0.95].shape == (F, 1, 1),
+                 f"phase null {name}: shapes")
+        _require(bool(np.isfinite(res["max_stat"]).all()
+                      and np.isfinite(res["observed"]).all()),
+                 f"phase null {name}: non-finite values")
+        if name == "uncoupled":
+            _require(res["p_fwe"] >= 0.01, f"phase null uncoupled: p_fwe "
+                     f"{res['p_fwe']} < 0.01")
+        else:
+            _require(res["p_fwe"] < 0.01, f"phase null coupled: p_fwe "
+                     f"{res['p_fwe']}, the coupling was not detected")
+        out[name] = {"wall_sec": wall, "n_surrogates": n_surr,
+                     "p_fwe": res["p_fwe"],
+                     "observed_max": res["observed_max"],
+                     "null_q95_max": float(res["null_quantiles"][0.95]
+                                           .max()),
+                     "timings": res["timings"],
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return out
+
+
 def reset_launches() -> None:
     cuda_msc.msc_jackknife.launches = 0
     cuda_null.null_tile.launches = 0
@@ -572,6 +920,32 @@ def main() -> int:
     fft["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(json.dumps({"phase": "fft_null", "card": card, **fft,
                     "launches": launches()}))
+    torch.cuda.empty_cache()
+
+    check_features_small_against_cpu(device)
+    t0 = time.perf_counter()
+    recording = make_recording()
+    log(json.dumps({"phase": "study_recording", "host_sec":
+                    time.perf_counter() - t0, "samples": len(recording[0]),
+                    "gb_each": recording[0].nbytes / 1e9}))
+    reset_launches()
+    psd = run_psd(recording, device)
+    cmc_task = run_task_cmc(recording, device)
+    n_feat = launches()
+    _require(n_feat["msc_jackknife"] > 0,
+             "the feature-extraction path did not launch the B1 kernel")
+    log(json.dumps({"phase": "feature_extraction", "card": card,
+                    "psd": psd, "task_cmc": cmc_task, "launches": n_feat}))
+    del recording
+    torch.cuda.empty_cache()
+    narrow = check_msc_kernel(*make_signals(
+        0, len(CMC_EEG_CHANNEL_SUBSET), N_EMG, SECONDS), device)
+    log(json.dumps({"phase": "b1_narrow_montage", "card": card,
+                    "eeg_channels": len(CMC_EEG_CHANNEL_SUBSET),
+                    "emg_channels": N_EMG, **narrow}))
+    torch.cuda.empty_cache()
+    log(json.dumps({"phase": "phase_null_config4", "card": card,
+                    **run_phase_null(device)}))
 
     kernels = [
         {"name": "msc_jackknife", "route": "cuda",

@@ -14,13 +14,25 @@ The slices so far:
   CUDA kernel ``csrc/coeff_pairs.cu`` (``ops/cuda_coeffs.py``), in the
   shared or the per-window rotation mode;
 - ``ops.cohort_null.cohort_msc_fft_null`` and ``cohort_msc_null``: the
-  full-FFT phase-randomisation null and the dispatch between the two.
+  full-FFT phase-randomisation null and the dispatch between the two;
+- the per-subject feature-extraction stage,
+  ``workflows.subject_feature_extraction_workflow`` over
+  ``pipeline.signal_features``: the multitaper PSD and the other spectral
+  estimators of ``ops.spectral``, band aggregates reduced on the device,
+  and the task-wise CMC through ``multitaper_msc`` (kernel B1), with the
+  host helpers they need (``channel_layout``, ``utils.file_management``,
+  parts of ``pipeline.data_integration``, ``data_analysis`` and
+  ``cbpa``);
+- ``ops.surrogate``: the phase-randomised coherence null
+  ``msc_phase_randomized_null`` and the host fault injection.
 
-The package imports torch, numpy and scipy, never ``jax`` or ``mba_tpu``.
-Public functions keep the JAX package's signatures, layouts (samples on
-axis 0) and result dictionaries, and return numpy arrays.  Each kernel
-wrapper runs its plain PyTorch version for CPU tensors only; for CUDA
-tensors it launches the kernel or raises.
+The package imports torch, numpy and scipy (pandas only where an
+experiment log is read), never ``jax`` or ``mba_tpu``.  Public functions
+keep the JAX package's signatures, layouts (samples on axis 0) and result
+dictionaries, and return numpy arrays, or a tensor on the device where
+the JAX function returns a device array.  Each kernel wrapper runs its
+plain PyTorch version for CPU tensors only; for CUDA tensors it launches
+the kernel or raises.
 """
 
 __version__ = "0.1.0"

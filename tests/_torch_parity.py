@@ -37,6 +37,22 @@ def jax_phases(seed: int, J: int, S: int, K: int, nF: int) -> np.ndarray:
                                        maxval=2.0 * np.pi))
 
 
+def jax_chunk_phases(seed: int):
+    """A stand-in for ``mba_tpu_torch.ops.surrogate.draw_chunk_phases``
+    that hands out the JAX package's draws: per chunk ``key, sub =
+    jax.random.split(key)`` and ``uniform(sub, (S, F, M), 0, 2π)``, as
+    ``surrogate.py:415-416`` and ``:132-134`` draw them."""
+    import jax
+    state = {"key": jax.random.PRNGKey(seed)}
+
+    def draw(generator, n_surrogates, n_freqs, n_channels, device):
+        state["key"], sub = jax.random.split(state["key"])
+        phases = jax.random.uniform(sub, (n_surrogates, n_freqs, n_channels),
+                                    minval=0.0, maxval=2 * np.pi)
+        return torch.from_numpy(np.array(phases)).to(device)
+    return draw
+
+
 def null_toy(J=3, nF=4, N=512, K=3, seed=0):
     """Random rotation-null coefficients as ``tests/test_pallas_null.py``
     makes them: coef (J, nF, N, P), base and obs (nF, N)."""

@@ -27,8 +27,13 @@ from mba_tpu_torch import _build
 from mba_tpu_torch.ops import cohort_null as TN
 from mba_tpu_torch.ops import coherence as TC
 from mba_tpu_torch.ops import cuda_coeffs, cuda_msc, cuda_null
+from mba_tpu_torch.ops import spectral as TS
+from mba_tpu_torch.ops import surrogate as TSu
 from mba_tpu_torch.ops.dpss import filtered_tapers
-from mba_tpu_torch.ops.framing import frame_signal, window_grid
+from mba_tpu_torch.ops.framing import (frame_signal, resample_linear,
+                                       window_grid)
+from mba_tpu_torch.pipeline import signal_features as TF
+from mba_tpu_torch.pipeline.cbpa import CMC_EEG_CHANNEL_SUBSET
 
 from _torch_parity import cohort_subject, coupled_signals, null_toy, t32
 
@@ -64,6 +69,14 @@ def test_package_imports_neither_jax_nor_mba_tpu():
     assert {"mba_tpu_torch.ops.cuda_msc", "mba_tpu_torch.ops.cuda_null",
             "mba_tpu_torch.ops.cuda_coeffs",
             "mba_tpu_torch.ops.rotation_coeffs",
+            "mba_tpu_torch.ops.spectral", "mba_tpu_torch.ops.surrogate",
+            "mba_tpu_torch.channel_layout",
+            "mba_tpu_torch.utils.file_management",
+            "mba_tpu_torch.pipeline.signal_features",
+            "mba_tpu_torch.pipeline.data_integration",
+            "mba_tpu_torch.pipeline.data_analysis",
+            "mba_tpu_torch.pipeline.cbpa",
+            "mba_tpu_torch.workflows.subject_feature_extraction_workflow",
             "mba_tpu_torch.convert"} <= set(names)
     code = (f"import importlib, sys\n"
             f"for name in {names!r}:\n"
@@ -436,3 +449,145 @@ def test_rotation_engines_on_card_match_cpu(cuda, kw):
                                rtol=2e-5, atol=2e-6)
     assert got["max_stat"].shape == (600,)
     assert np.isfinite(got["max_stat"]).all()
+
+
+# ---- the feature-extraction stage and the phase null on the card ----------
+
+_DRAW_PHASES = TSu.draw_chunk_phases
+
+
+def _cpu_phases(seed):
+    """A stand-in for ``surrogate.draw_chunk_phases`` that draws on the
+    CPU from a fresh generator, so the card and the CPU get the same
+    phases."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def draw(generator, n_surrogates, n_freqs, n_channels, device):
+        return _DRAW_PHASES(gen, n_surrogates, n_freqs, n_channels,
+                            "cpu").to(device)
+    return draw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log_scale", [False, True])
+def test_spectral_estimators_on_card_match_cpu(cuda, log_scale):
+    """PSD rtol 1e-4 with atol 1e-6·max (atol 1e-4 on log10), Welch rtol
+    1e-4, amplitude spectrum 1e-6 of its peak, resampling 1e-6."""
+    x, _ = coupled_signals(seconds=8, n_eeg=8, n_emg=1)
+    kw = dict(window_length_sec=0.5, axis=0, apply_log_scale=log_scale)
+    dev, _, _ = TS.multitaper_psd(x, 256.0, device=cuda, device_output=True,
+                                  **kw)
+    assert dev.device.type == "cuda"
+    ref = TS.multitaper_psd(x, 256.0, **kw)[0]
+    if log_scale:
+        np.testing.assert_allclose(dev.cpu().numpy(), ref, rtol=0, atol=1e-4)
+    else:
+        np.testing.assert_allclose(dev.cpu().numpy(), ref, rtol=1e-4,
+                                   atol=1e-6 * np.abs(ref).max())
+    np.testing.assert_allclose(TS.welch_psd(x, 256.0, 512, device=cuda)[1],
+                               TS.welch_psd(x, 256.0, 512)[1], rtol=1e-4)
+    a = TS.amplitude_spectrum(x, 256.0, device=cuda)[0]
+    b = TS.amplitude_spectrum(x, 256.0)[0]
+    np.testing.assert_allclose(a, b, rtol=0, atol=1e-6 * np.abs(b).max())
+    r = resample_linear(t32(x).to(cuda), 256.0, 200.0).cpu().numpy()
+    np.testing.assert_allclose(r, resample_linear(t32(x), 256.0,
+                                                  200.0).numpy(),
+                               rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_band_aggregates_on_card_match_host(cuda):
+    """rtol 1e-6 / atol 1e-7, NaNs equal (an all-NaN window, NaN bins)."""
+    x, _ = coupled_signals(seconds=8, n_eeg=8, n_emg=1)
+    spec, _, freqs = TS.multitaper_psd(x, 256.0, window_length_sec=0.5,
+                                       axis=0, device=cuda,
+                                       device_output=True)
+    spec[3] = float("nan")
+    spec[5, 10:20, 2] = float("nan")
+    got, names, _ = TF.band_aggregate_spectrogram(spec, freqs)
+    assert got.device.type == "cuda"
+    ref, names_h, _ = TF.band_aggregate_spectrogram(spec.cpu().numpy(),
+                                                    freqs)
+    assert names == names_h
+    np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=1e-6, atol=1e-7,
+                               equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threshold", [False, True])
+def test_task_wise_cmc_on_card_runs_the_kernel(cuda, threshold):
+    """Kernel B1 at E = 11 against the CPU: fused EMG max, or the full
+    grid then the host max.  Coherence within 5e-5, CIs within
+    ``ci_tolerance``."""
+    rng = np.random.default_rng(7)
+    n = 256 * 12
+    shared = rng.standard_normal((n, 1))
+    eeg = (0.5 * shared + rng.standard_normal((n, 64))).astype(np.float32)
+    emg = (0.5 * shared + rng.standard_normal((n, 6))).astype(np.float32)
+    mask = np.zeros(11, bool)
+    mask[2:9] = True
+    kw = dict(eeg_channel_subset=CMC_EEG_CHANNEL_SUBSET,
+              window_size_sec=2.0, window_mask=mask,
+              enforce_independence_threshold=threshold,
+              independence_threshold_alpha=1 - 1e-9)
+    before = cuda_msc.msc_jackknife.launches
+    got = TF.compute_task_wise_aggregated_cmc(eeg, emg, 256, "flexor",
+                                              device=cuda, **kw)
+    assert cuda_msc.msc_jackknife.launches > before
+    ref = TF.compute_task_wise_aggregated_cmc(eeg, emg, 256, "flexor", **kw)
+    np.testing.assert_allclose(got[0], ref[0], rtol=0, atol=5e-5)
+    sub = eeg[:, [TF.EEG_CHANNEL_IND_DICT[c]
+                  for c in CMC_EEG_CHANNEL_SUBSET]]
+    starts, _ = window_grid(n, 512, 256, 256.0)
+    tapers = t32(filtered_tapers(512, 3, 0.9))
+    e, m = (TC.tapered_rfft(frame_signal(t32(x), starts, 512), tapers)
+            for x in (sub, emg))
+    tol = cuda_msc.ci_tolerance(
+        cuda_msc.loo_coherence_max(e, m).numpy().max(-1))
+    for g, r in zip(got[1:3], ref[1:3]):
+        assert (np.abs(g - r) <= tol).all()
+
+
+@pytest.mark.cuda
+def test_jackknife_coherence_and_ci_on_card_runs_the_kernel(cuda):
+    rng = np.random.default_rng(8)
+    shared = rng.standard_normal((256, 1))
+    eeg = 0.6 * shared + rng.standard_normal((256, 11))
+    emg = 0.6 * shared + rng.standard_normal((256, 64))
+    tapers = filtered_tapers(256, 3, 0.9)
+    before = cuda_msc.msc_jackknife.launches
+    got = TF.jackknife_coherence_and_ci(tapers, eeg, emg, 256.0, 256,
+                                        device=cuda)
+    assert cuda_msc.msc_jackknife.launches == before + 1
+    ref = TF.jackknife_coherence_and_ci(tapers, eeg, emg, 256.0, 256)
+    np.testing.assert_allclose(got[0], ref[0], rtol=0, atol=5e-5)
+    e, m = (TC.tapered_rfft(t32(x)[None], t32(tapers)) for x in (eeg, emg))
+    tol = cuda_msc.ci_tolerance(cuda_msc.loo_coherence_max(e, m)[0].numpy())
+    for g, r in zip(got[1:], ref[1:]):
+        assert (np.abs(g - r) <= tol).all()
+
+
+@pytest.mark.cuda
+def test_phase_null_on_card_matches_cpu(cuda, monkeypatch):
+    """The same phases on the card and the CPU: observed within 5e-5,
+    max_stat rtol 1e-4 / atol 5e-5, p_fwe equal, quantiles equal but in
+    at most 1e-3 of the cells, by one bin.  cuFFT and the CPU's FFT
+    differ by ~1e-7, so a cell's quantile moves where its order
+    statistic lies that near a bin edge: ~1e-4 to 1e-3 of the cells, so
+    the grid has 8 196 cells (2-s windows at 2048 Hz, 2×2) for the
+    fraction to mean something."""
+    eeg, emg = coupled_signals(fs=2048, seconds=8, n_eeg=2, n_emg=2)
+    kw = dict(window_length_sec=2.0, n_surrogates=200, surrogate_chunk=64,
+              band=(13.0, 100.0))
+    monkeypatch.setattr(TSu, "draw_chunk_phases", _cpu_phases(5))
+    got = TSu.msc_phase_randomized_null(eeg, emg, 2048.0, device=cuda, **kw)
+    monkeypatch.setattr(TSu, "draw_chunk_phases", _cpu_phases(5))
+    ref = TSu.msc_phase_randomized_null(eeg, emg, 2048.0, **kw)
+    np.testing.assert_allclose(got["observed"], ref["observed"], rtol=0,
+                               atol=5e-5)
+    np.testing.assert_allclose(got["max_stat"], ref["max_stat"], rtol=1e-4,
+                               atol=5e-5)
+    assert got["p_fwe"] == ref["p_fwe"]
+    for q in (0.95, 0.99):
+        d = np.abs(got["null_quantiles"][q] - ref["null_quantiles"][q]) * 1024
+        assert d.max() <= 1 and (d > 0).mean() <= 1e-3
