@@ -41,7 +41,14 @@ result):
    band); (h) B1 against its plain version at that narrow montage,
    11×64; (i) bench.py's config 4, the single-pair 10 000-surrogate
    phase null, uncoupled (p_fwe ≥ 0.01) and coupled (p_fwe < 0.01);
-8. one JSON line describing the kernels, then the result line
+8. one JSON line describing the kernels: per kernel its launches on its
+   main path (and on every path, ``launches_by_path``), its error
+   against the plain version, CUDA-event times of the kernel and the
+   plain version, its bound (the larger of the bytes it must move over
+   3.35 TB/s and the operations it must do over 67 TFLOP/s, float32 on
+   the CUDA cores, counted from this run's shapes), the share of that
+   bound it reaches, and, for B2, the time of ``torch.bmm`` of the same
+   product (TF32 off) as ``library_ms``; then the result line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 from __future__ import annotations
@@ -107,6 +114,11 @@ WELCH_RTOL = 1e-4
 BAND_RTOL, BAND_ATOL = 1e-6, 1e-7
 PHASE_MAX_RTOL, PHASE_MAX_ATOL = 1e-4, 5e-5
 QUANTILE_CELLS = 1e-3   # cells whose null quantile may move by one bin
+# the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): float32
+# on the CUDA cores and HBM3; a kernel's bound is the larger of its
+# operations and its bytes over these
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -174,6 +186,41 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def roofline(ms: float, flops: float, nbytes: float) -> dict:
+    """The least time the card could take for ``flops`` float32
+    operations and ``nbytes`` moved once, what bounds it, and the share
+    of it that ``ms`` reaches."""
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    bound = max(t_ops, t_bytes)
+    return {"bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "share_of_bound": bound / ms, "flops": flops, "bytes": nbytes}
+
+
+def msc_emg_max_work(W, K, F, E, M) -> tuple[float, float]:
+    """(flops, bytes) of B1's EMG-max function.  Per (w, f, e, m): the K
+    cross terms (6 flops each) and their totals (2 each), the K
+    leave-one-out ratios (two differences, |.|² in 3, the denominator
+    product, the division, the running sum: 8 each) and their mean: 16K
+    + 1; the argmax compare, and the CIs once per (w, f, e) (K Fisher
+    transforms and the variance, ~10K + 12 with each transcendental
+    counted as one), are counted too.  Bytes: both spectra read once,
+    three (W, F, E) float32 results written once."""
+    flops = W * F * E * (M * (16 * K + 2) + 10 * K + 12)
+    nbytes = W * K * F * (E + M) * 8 + 3 * W * F * E * 4
+    return float(flops), float(nbytes)
+
+
+def msc_full_grid_work(W, K, F, E, M) -> tuple[float, float]:
+    """(flops, bytes) of B1's full-grid function: the whole jackknife
+    (16K + 1 + 10K + 12) at every (w, f, e, m), three (W, F, E, M)
+    results written once."""
+    flops = W * F * E * M * (26 * K + 13)
+    nbytes = W * K * F * (E + M) * 8 + 3 * W * F * E * M * 4
+    return float(flops), float(nbytes)
+
+
 def _np(d: dict) -> dict:
     return {k: v.cpu().numpy() for k, v in d.items()}
 
@@ -200,7 +247,7 @@ def main_path_msc_chunk(eeg, emg, device):
     return spec[0], spec[1], TC.jackknife_t_crit(K, 0.05)
 
 
-def check_msc_kernel(eeg, emg, device, reps=5) -> dict:
+def check_msc_kernel(eeg, emg, device, reps=10) -> dict:
     """B1 against its plain version in both EMG modes.  Coherence within
     MSC_ATOL; CIs within ``cuda_msc.ci_tolerance``: MSC_ATOL, plus the
     float32 rounding of the jackknife replicates that Fisher z amplifies
@@ -245,10 +292,27 @@ def check_msc_kernel(eeg, emg, device, reps=5) -> dict:
              f"B1 disagrees with its plain version: {excess}")
     _require(tie_frac <= TIE_FRACTION,
              f"B1 argmax picks differ in {tie_frac:.2e} of cells")
+    # the EMG-max mode forms the CIs of its pick alone, through the code
+    # of the full grid: bit for bit the full grid's at its first argmax
+    first = np.argmax(kf["coherence"], axis=-1)[..., None]
+    for key in ("coherence", "ci_lower", "ci_upper"):
+        at_pick = np.take_along_axis(kf[key], first, -1)[..., 0]
+        _require(np.array_equal(km[key], at_pick),
+                 f"B1 EMG-max {key} is not the full grid's at its pick")
     ms = cuda_ms(lambda: cuda_msc.msc_jackknife(e, m, t_crit), reps)
     plain_ms = cuda_ms(lambda: cuda_msc.msc_jackknife_plain(e, m, t_crit),
                        reps)
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+    full_ms = cuda_ms(lambda: cuda_msc.msc_jackknife(e, m, t_crit,
+                                                     emg_max=False), reps)
+    W, K, F, E = e.shape
+    M = m.shape[-1]
+    full = roofline(full_ms, *msc_full_grid_work(W, K, F, E, M))
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            **roofline(ms, *msc_emg_max_work(W, K, F, E, M)),
+            "library_ms": None, "shape": [W, K, F, E, M],
+            "full_grid": {"ms": full_ms, "bound_ms": full["bound_ms"],
+                          "bound_by": full["bound_by"],
+                          "share_of_bound": full["share_of_bound"]}}
 
 
 def null_check_state(device, K=5, seed=0):
@@ -292,7 +356,7 @@ def check_null_kernel(device, reps=10) -> dict:
         diff = (cnt - cnt_p).abs()
         cnt_frac = float((diff > 0).float().mean())
         log(json.dumps({"check": "null_tile", "S": S,
-                        "shape": [nF, S, G.shape[2], state.coefT.shape[2]],
+                        "shape": [nF, S, G.shape[1], state.coefT.shape[2]],
                         "max_stat_abs_err": err,
                         "count_cells_differ": cnt_frac,
                         "count_max_diff": int(diff.max()),
@@ -307,7 +371,28 @@ def check_null_kernel(device, reps=10) -> dict:
             out["ms"] = cuda_ms(lambda: cuda_null.null_tile(*args), reps)
             out["plain_ms"] = cuda_ms(
                 lambda: cuda_null.null_tile_plain(*args), reps)
+            JP, N = G.shape[1], state.coefT.shape[2]
+            nbytes = 4 * (G.numel() + state.coefT.numel()
+                          + 3 * nF * N + S)
+            out.update(roofline(out["ms"], 2.0 * nF * S * JP * N, nbytes))
+            out["library_ms"] = bmm_ms(G, state.coefT, reps)
+            out["shape"] = [nF, S, JP, N]
     return out
+
+
+def bmm_ms(G, coefT, reps) -> float:
+    """B2's yardstick: ``torch.bmm`` of the same (nF, S, J·P) × (nF, J·P,
+    N) product in float32 with TF32 off, into a preallocated output: the
+    product alone, without the epilogue, on row-major features."""
+    _require(not torch.backends.cuda.matmul.allow_tf32,
+             "TF32 is on: the yardstick would not be float32")
+    a = G.transpose(1, 2).contiguous()
+    out = torch.empty((a.shape[0], a.shape[1], coefT.shape[2]),
+                      dtype=torch.float32, device=G.device)
+    ms = cuda_ms(lambda: torch.bmm(a, coefT, out=out), reps)
+    del a, out
+    torch.cuda.empty_cache()
+    return ms
 
 
 def check_coeff_kernel(cohort, device, reps=10) -> dict:
@@ -347,8 +432,19 @@ def check_coeff_kernel(cohort, device, reps=10) -> dict:
              f"B3 disagrees with its plain version: {excess}")
     ms = cuda_ms(lambda: cuda_coeffs.coeff_pairs(e, m, w), reps)
     plain_ms = cuda_ms(lambda: cuda_coeffs.coeff_pairs_plain(e, m, w), reps)
+    # per (window, f, e, m): the denominator and its scale (4), per taper
+    # the cross term, its scaling and |y|² into the diagonal (12), per
+    # pair k < l the complex product into the sums (8); spectra read
+    # once, the 1 + 2·P2 sums written once
+    wc, K, nF, E = e.shape
+    M = m.shape[-1]
+    P2 = K * (K - 1) // 2
+    flops = wc * nF * E * M * (4 + 12 * K + 8 * P2)
+    nbytes = 8 * wc * K * nF * (E + M) + 4 * wc + 4 * (1 + 2 * P2) * nF * E * M
     return {"max_abs_err": max(errs.values()) * wsum, "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms,
+            **roofline(ms, float(flops), float(nbytes)),
+            "library_ms": None, "shape": [wc, K, nF, E, M]}
 
 
 def _require_close_observed(got, ref, what) -> None:
@@ -910,16 +1006,18 @@ def main() -> int:
     pw, _ = run_null(*pw_cohort, device, n_surrogates=PW_SURROGATES,
                      rotation_mode="per_window")
     pw["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    n_pw = launches()
     log(json.dumps({"phase": "per_window_null", "card": card, **pw,
-                    "launches": launches()}))
+                    "launches": n_pw}))
     del pw_cohort
     torch.cuda.empty_cache()
     reset_launches()
     fft = run_fft_null(make_cohort(FFT_SUBJECTS, FFT_SECONDS, PW_CHANNELS,
                                    PW_CHANNELS), device)
     fft["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    n_fft = launches()
     log(json.dumps({"phase": "fft_null", "card": card, **fft,
-                    "launches": launches()}))
+                    "launches": n_fft}))
     torch.cuda.empty_cache()
 
     check_features_small_against_cpu(device)
@@ -947,19 +1045,27 @@ def main() -> int:
     log(json.dumps({"phase": "phase_null_config4", "card": card,
                     **run_phase_null(device)}))
 
+    paths = {"cmc": n_cmc, "null_gram": n_gram, "null_pallas": n_pallas,
+             "null_per_window": n_pw, "fft_null": n_fft,
+             "feature_extraction": n_feat}
+    by_path = lambda k: {p: n[k] for p, n in paths.items()}
     kernels = [
         {"name": "msc_jackknife", "route": "cuda",
          "source": "mba_tpu_torch/csrc/msc_jackknife.cu",
          "replaces": "mba_tpu/ops/pallas_msc.py:40",
-         "launches": n_cmc["msc_jackknife"], **msc},
+         "launches": n_cmc["msc_jackknife"],
+         "launches_by_path": by_path("msc_jackknife"), **msc,
+         "task_cmc_11x64": narrow},
         {"name": "null_tile", "route": "cuda",
          "source": "mba_tpu_torch/csrc/null_tile.cu",
          "replaces": "mba_tpu/ops/pallas_null.py:37",
-         "launches": n_gram["null_tile"], **null},
+         "launches": n_gram["null_tile"],
+         "launches_by_path": by_path("null_tile"), **null},
         {"name": "coeff_pairs", "route": "cuda",
          "source": "mba_tpu_torch/csrc/coeff_pairs.cu",
          "replaces": "mba_tpu/ops/pallas_coeffs.py:83",
-         "launches": n_pallas["coeff_pairs"], **coeff},
+         "launches": n_pallas["coeff_pairs"],
+         "launches_by_path": by_path("coeff_pairs"), **coeff},
     ]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

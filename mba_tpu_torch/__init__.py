@@ -30,9 +30,11 @@ The package imports torch, numpy and scipy (pandas only where an
 experiment log is read), never ``jax`` or ``mba_tpu``.  Public functions
 keep the JAX package's signatures, layouts (samples on axis 0) and result
 dictionaries, and return numpy arrays, or a tensor on the device where
-the JAX function returns a device array.  Each kernel wrapper runs its
-plain PyTorch version for CPU tensors only; for CUDA tensors it launches
-the kernel or raises.
+the JAX function returns a device array.  Each entry point runs on the
+card (``cuda``) unless it is given ``device="cpu"`` or CPU tensors; where
+it would run on the card and there is none, it raises.  Each kernel
+wrapper runs its plain PyTorch version for CPU tensors only; for CUDA
+tensors it launches the kernel or raises.
 """
 
 __version__ = "0.1.0"

@@ -22,13 +22,27 @@ def apply_precision_policy() -> None:
 
 def resolve_device(device, *tensors) -> torch.device:
     """The device to run on: ``device`` when given, else that of the
-    first torch tensor among ``tensors``, else the CPU."""
+    first torch tensor among ``tensors``, else the card (``cuda``).  The
+    CPU runs only when asked for, by ``device="cpu"`` or CPU tensors."""
     if device is not None:
         return torch.device(device)
     for t in tensors:
         if isinstance(t, torch.Tensor):
             return t.device
-    return torch.device("cpu")
+    return torch.device("cuda")
+
+
+def entry_device(device, *tensors) -> torch.device:
+    """:func:`resolve_device` for an entry point: raises where it names
+    the card and there is none, so a call never carries on on the CPU
+    unasked."""
+    dev = resolve_device(device, *tensors)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "mba_tpu_torch runs on an NVIDIA card unless told otherwise, "
+            "and torch.cuda.is_available() is False here; pass "
+            "device=\"cpu\" to run on the CPU")
+    return dev
 
 
 def synchronize(device: torch.device) -> None:

@@ -5,26 +5,56 @@
 // eeg (W, K, F, E) and emg (W, K, F, M), complex64 (float2, re/im
 // interleaved).  Per (window, frequency, EEG e, EMG m) cell it forms the
 // taper-summed cross-spectrum conj(E)·M and auto-powers, each
-// leave-one-taper-out MSC as total minus taper k, the Fisher-z jackknife
-// mean and variance, and the Student-t CIs as tanh², clamped to contain
-// the mean.  With EMG_MAX it keeps a running argmax over m (strict '>',
-// so the first of equal maxima wins, as jnp.argmax) and writes the
-// coherence and the CIs at that index: (W, F, E).  Otherwise it writes
-// the full (W, F, E, M) grids.  The (K, F, E, M) leave-one-out tensors
-// never reach device memory.
+// leave-one-taper-out MSC as total minus taper k, their clipped mean
+// (the coherence), the Fisher-z jackknife mean and variance, and the
+// Student-t CIs as tanh², clamped to contain the mean.  With EMG_MAX it
+// takes the argmax of the coherence over m and writes the coherence and
+// the CIs at that index: (W, F, E).  Otherwise it writes the full
+// (W, F, E, M) grids.  The (K, F, E, M) leave-one-out tensors never reach
+// device memory.
 //
-// What bounds it on the H100: arithmetic.  Per cell and EMG channel it
-// does ~K·30 flops plus K divisions and K+1 logf and two tanhf, against
-// 8·K bytes of spectra per (f, channel) that are reused over all E·M
-// pairs; the main path (W=119, F=2049, 64×64, K=5) is ~5e9 cells·m
-// evaluations.  The design: one block per (window, FB=4 frequencies);
-// the block stages that frequency block's EMG spectra and leave-one-out
-// EMG powers in shared memory (K·FB·M·12 bytes, 15 KB at K=5, M=64);
-// one thread per (f, e) keeps its K EEG spectra in registers and loops
-// over m, re-forming each taper's cross product in registers, as the
-// Pallas kernel re-forms its outer products on the VPU.  All lanes of a
-// warp share f, so every shared-memory read is a broadcast.  Output
-// stores are coalesced over e.
+// What bounds it on the H100: the float32 instruction rate.  Every product
+// and sum stays unfused for parity (below) and each leave-one-out ratio
+// is an IEEE division (~9 instructions with its special-case check), so
+// what counts is lane-instructions, not flops.  The whole jackknife is
+// ~420 of them an evaluation at K = 5 (K divisions, K+1 logf, sqrtf, two
+// tanhf), ~1.8 ms for the main path's 64×64 chunk (W=17, F=2049: 142.7 M
+// evaluations) at 132 SMs × 128 lanes × 1.98 GHz.  The arithmetic the
+// EMG-max function needs is ~83 flops an evaluation (the K cross terms,
+// their totals, the K leave-one-out ratios and their mean): bounds of
+// 0.177 ms at 64×64 and 0.106 ms at the task CMC's 11×64 (W=59: 85.1 M)
+// at 67 TFLOP/s.
+//
+// What the design does about it:
+// * Winner-only CIs.  The argmax reads only the coherence, so the m scan
+//   of the EMG-max mode forms the K cross terms, their totals, the K
+//   clipped leave-one-out ratios and their clipped mean (~150
+//   lane-instructions at K = 5).  The jackknife (Fisher z, two-pass
+//   variance, centre, two tanhf) then runs once per (w, f, e), for the
+//   pick, by the functions the full grid runs for every m, with the
+//   same operations in the same order: the EMG-max CIs are bitwise the
+//   full grid's at the same pick, and the NaN of a perfectly coherent
+//   pair survives.  The scan is the first form's: strict '>', the
+//   first of equal maxima wins, m = 0 seeds the pick.
+// * A full block at any montage.  A block serves (window, FB frequencies)
+//   with L lanes per (f, e) cell and FB·E·L ≈ 256 (FB = 4 at 64×64,
+//   where the first form also had 4; 11 at 11×64, where it left 212 of
+//   256 threads idle).  Shared memory holds the block's EMG spectra and
+//   leave-one-out EMG powers, FB·(K·M+1)·12 bytes, which at narrow
+//   montages limits the threads an SM can hold; so below E = 32 a cell
+//   has L = 2 lanes, lane j scanning m = j, j+2, ..., and one shuffle
+//   combines the two picks as the one scan would (a NaN seed at m = 0
+//   stands, else the larger value, else the smaller m).  The pick's
+//   jackknife is then split between the two lanes (jackknife_pair).
+//   Output stores are coalesced over (f, e).
+// * Staging: the EMG spectra are copied by cp.async, all copies in
+//   flight at once, while the first cell's EEG spectra load; rows are
+//   m-major with the K tapers together (a lane's K loads use immediate
+//   offsets) and one entry of padding per frequency (the frequencies that
+//   a warp's lanes span fall in other banks).
+// * The full grid runs a warp per cell, lanes over m, so its (W, F, E, M)
+//   stores are consecutive (the first form stored a row of M per thread,
+//   ~10× slower per 64×64 chunk).
 //
 // Numerics: no fast math.  In float32 1 - 1e-10 == 1, so the Fisher clip
 // lets c == 1 through to log(2/0) = +inf and the z variance to
@@ -49,7 +79,6 @@
 
 namespace {
 
-constexpr int FB = 4;          // frequencies per block
 constexpr int THREADS = 256;   // (f, e) cells per block pass
 
 __device__ __forceinline__ float nan_max(float a, float b) {
@@ -75,6 +104,12 @@ __device__ __forceinline__ float sub(float a, float b) {
   return __fsub_rn(a, b);
 }
 
+__device__ __forceinline__ void cp_async8(float2* dst, const float2* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+               "l"(src));
+}
+
 // |x|² of one complex spectrum value
 __device__ __forceinline__ float power(float2 x) {
   return add(mul(x.x, x.x), mul(x.y, x.y));
@@ -83,7 +118,174 @@ __device__ __forceinline__ float power(float2 x) {
 __device__ __forceinline__ float fisher(float c) {
   const float eps = 1e-10f;
   c = clip(c, eps, 1.0f - eps);             // upper bound rounds to 1.0f
-  return 0.5f * logf((1.0f + c) / (1.0f - c));
+  return __fmul_rn(0.5f, logf(__fdiv_rn(__fadd_rn(1.0f, c),
+                                        __fsub_rn(1.0f, c))));
+}
+
+// Leave-taper-k-out MSC from the totals and taper k's cross term,
+// clipped to [0, 1]: num >= +0 and den > 0 (or NaN), so the quotient is
+// never below 0 and only the upper clamp can act
+__device__ __forceinline__ float loo_ratio(float sum_cr, float sum_ci,
+                                           float cr, float ci, float loo_e,
+                                           float loo_m) {
+  const float lcr = sub(sum_cr, cr);
+  const float lci = sub(sum_ci, ci);
+  const float num = add(mul(lcr, lcr), mul(lci, lci));
+  // max(p, 1e-30) with NaN kept: p < 1e-30 is false for a NaN
+  const float p = mul(loo_e, loo_m);
+  const float den = p < 1e-30f ? 1e-30f : p;
+  const float q = __fdiv_rn(num, den);
+  return q > 1.f ? 1.f : q;                 // NaN passes through
+}
+
+// The K cross terms conj(E_k)·M_k of one (f, e, m) and their totals.
+// v points at M_0 of this (f, m); taper k is v[k].
+template <int K>
+struct Cross {
+  float cr[K], ci[K];
+  float sum_cr, sum_ci;
+
+  __device__ __forceinline__ Cross(const float2 (&x)[K], const float2* v) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float2 mk = v[k];
+      // conj(E)·M: re = er·mr + ei·mi, im = er·mi − ei·mr
+      cr[k] = add(mul(x[k].x, mk.x), mul(x[k].y, mk.y));
+      ci[k] = sub(mul(x[k].x, mk.y), mul(x[k].y, mk.x));
+    }
+    // totals from the first term on, without 0 + x_0: that would change
+    // only the sign of an all-zero total, which every use squares away
+    sum_cr = cr[0];
+    sum_ci = ci[0];
+#pragma unroll
+    for (int k = 1; k < K; ++k) {
+      sum_cr = add(sum_cr, cr[k]);
+      sum_ci = add(sum_ci, ci[k]);
+    }
+  }
+
+  __device__ __forceinline__ float loo(int k, float loo_e, float loo_m)
+      const {
+    return loo_ratio(sum_cr, sum_ci, cr[k], ci[k], loo_e, loo_m);
+  }
+};
+
+// The coherence: the clipped mean of the K leave-one-out ratios (each
+// >= +0 or NaN, so the sum starts at the first).  All the argmax over m
+// reads.
+template <int K>
+__device__ __forceinline__ float coherence_mean(const Cross<K>& x,
+                                               const float (&loo_e)[K],
+                                               const float* loo_m) {
+  float sum_c = x.loo(0, loo_e[0], loo_m[0]);
+#pragma unroll
+  for (int k = 1; k < K; ++k)
+    sum_c = add(sum_c, x.loo(k, loo_e[k], loo_m[k]));
+  return clip(mul(sum_c, 1.0f / K), 0.f, 1.f);
+}
+
+// The jackknife from its K terms (c_k and its Fisher z_k): the
+// coherence, the z standard error (two-pass variance) and the centre
+template <int K>
+__device__ __forceinline__ void jk_centre(const float (&c)[K],
+                                          const float (&z)[K], float& cm,
+                                          float& z_se, float& zc) {
+  float sum_c = c[0], sum_z = z[0];         // each >= +0 or NaN
+#pragma unroll
+  for (int k = 1; k < K; ++k) {
+    sum_c = add(sum_c, c[k]);
+    sum_z = add(sum_z, z[k]);
+  }
+  cm = clip(mul(sum_c, 1.0f / K), 0.f, 1.f);
+  const float z_mean = mul(sum_z, 1.0f / K);
+  float ss = 0.f;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const float d = sub(z[k], z_mean);
+    ss = __fmaf_rn(d, d, ss);
+  }
+  z_se = __fsqrt_rn(mul((K - 1.0f) / K, ss));
+  zc = fisher(cm);
+}
+
+// The whole jackknife of one (f, e, m): coherence and both CIs.  The
+// full grid and the EMG-max pick reach the CIs through this function or
+// through jackknife_pair, which forms the same floats in two lanes.
+template <int K>
+__device__ __forceinline__ void jackknife(const Cross<K>& x,
+                                          const float (&loo_e)[K],
+                                          const float* loo_m, float t_crit,
+                                          float& cm, float& cl, float& cu) {
+  float c[K], z[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    c[k] = x.loo(k, loo_e[k], loo_m[k]);
+    z[k] = fisher(c[k]);
+  }
+  float z_se, zc;
+  jk_centre<K>(c, z, cm, z_se, zc);
+  const float tl = tanhf(__fmaf_rn(-t_crit, z_se, zc));
+  const float th = tanhf(__fmaf_rn(t_crit, z_se, zc));
+  cl = nan_min(mul(tl, tl), cm);
+  cu = nan_max(mul(th, th), cm);
+}
+
+// jackknife() shared by the two lanes j = 0, 1 of `pair`: lane j forms
+// the terms of the tapers k = 2i + j and one of the two tanhf, on
+// operands picked by select so that both lanes run one instruction
+// stream, and the lanes swap what they formed.  Every value is the
+// float jackknife() forms, by the same functions on the same operands.
+template <int K>
+__device__ __forceinline__ void jackknife_pair(const Cross<K>& x,
+                                               const float (&loo_e)[K],
+                                               const float* loo_m,
+                                               float t_crit, int j,
+                                               unsigned pair, float& cm,
+                                               float& cl, float& cu) {
+  float c[K], z[K];
+#pragma unroll
+  for (int i = 0; i < (K + 1) / 2; ++i) {
+    const int k0 = 2 * i;
+    const int k1 = k0 + 1 < K ? k0 + 1 : k0;   // lane 1 idles at k = K
+    const float ck = loo_ratio(x.sum_cr, x.sum_ci,
+                               j ? x.cr[k1] : x.cr[k0],
+                               j ? x.ci[k1] : x.ci[k0],
+                               j ? loo_e[k1] : loo_e[k0],
+                               j ? loo_m[k1] : loo_m[k0]);
+    const float zk = fisher(ck);
+    const float oc = __shfl_xor_sync(pair, ck, 1);
+    const float oz = __shfl_xor_sync(pair, zk, 1);
+    c[k0] = j ? oc : ck;
+    z[k0] = j ? oz : zk;
+    if (k1 != k0) {
+      c[k1] = j ? ck : oc;
+      z[k1] = j ? zk : oz;
+    }
+  }
+  float z_se, zc;
+  jk_centre<K>(c, z, cm, z_se, zc);
+  // lane 0 the lower bound's tanhf, lane 1 the upper's
+  const float t = tanhf(__fmaf_rn(j ? t_crit : -t_crit, z_se, zc));
+  const float ot = __shfl_xor_sync(pair, t, 1);
+  const float tl = j ? ot : t, th = j ? t : ot;
+  cl = nan_min(mul(tl, tl), cm);
+  cu = nan_max(mul(th, th), cm);
+}
+
+// The K EEG spectra of one (f, e) and their leave-one-out powers
+template <int K>
+__device__ __forceinline__ void load_eeg(const float2* __restrict__ eeg,
+                                         size_t wk, int F, int E, int f,
+                                         int e, float2 (&x)[K],
+                                         float (&loo_e)[K]) {
+  float sum_e = 0.f;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    x[k] = eeg[((wk + k) * F + f) * E + e];
+    sum_e = add(sum_e, power(x[k]));
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) loo_e[k] = sub(sum_e, power(x[k]));
 }
 
 template <int K, bool EMG_MAX>
@@ -91,110 +293,123 @@ __global__ void __launch_bounds__(THREADS)
 msc_jackknife_kernel(const float2* __restrict__ eeg,
                      const float2* __restrict__ emg,
                      float* __restrict__ coh, float* __restrict__ lo,
-                     float* __restrict__ hi, int F, int E, int M,
-                     float t_crit) {
+                     float* __restrict__ hi, int F, int E, int M, int FB,
+                     int L, float t_crit) {
   extern __shared__ float4 smem[];
-  float2* ms = reinterpret_cast<float2*>(smem);        // [K][FB][M]
-  float* loo_m = reinterpret_cast<float*>(ms + K * FB * M);  // [K][FB][M]
+  // per frequency a row of M·K entries, m-major, K tapers together, plus
+  // one of padding so that the rows of neighbouring frequencies start in
+  // other banks: EMG spectra [FB][RS], then leave-one-out powers [FB][RS]
+  const int RS = M * K + 1;
+  float2* ms = reinterpret_cast<float2*>(smem);
+  float* loo_m = reinterpret_cast<float*>(ms + FB * RS);
 
   const int w = blockIdx.y;
   const int f0 = blockIdx.x * FB;
   const size_t wk = (size_t)w * K;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int fb = F - f0 < FB ? F - f0 : FB;           // real frequencies
+  const int cells = fb * E;
 
-  // stage the block's EMG spectra and leave-one-out EMG powers
-  for (int i = threadIdx.x; i < FB * M; i += blockDim.x) {
-    const int fi = i / M, m = i - fi * M, f = f0 + fi;
-    float2 v[K];
-    float sum = 0.f;
+  // this thread's (f, e) cells: EMG-max, L lanes a cell; full grid, a
+  // warp a cell.  The first cell's EEG spectra load while the EMG
+  // spectra are copied.
+  const int c_first = EMG_MAX ? threadIdx.x / L : warp;
+  const int c_step = EMG_MAX ? blockDim.x / L : n_warps;
+  float2 x[K];
+  float loo_e[K];
+  if (c_first < cells)
+    load_eeg<K>(eeg, wk, F, E, f0 + c_first / E, c_first % E, x, loo_e);
+
+  // stage the block's EMG spectra, a row of 32 m (one frequency) a warp,
+  // the K tapers unrolled, by cp.async: every copy is in flight at once;
+  // then, laid out the same way, their leave-one-out powers
+  const size_t taper = (size_t)F * M;               // emg: taper k → k+1
+  const int m_rows = (M + 31) / 32;                  // rows of 32 m
+  for (int r = warp; r < fb * m_rows; r += n_warps) {
+    const int fi = r / m_rows, m = (r - fi * m_rows) * 32 + lane;
+    if (m >= M) continue;
+    const float2* src = emg + (wk * F + f0 + fi) * M + m;
+    float2* dst = ms + fi * RS + m * K;
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      v[k] = (f < F) ? emg[((wk + k) * F + f) * M + m]
-                     : make_float2(0.f, 0.f);
-      sum = add(sum, power(v[k]));
-    }
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      ms[(k * FB + fi) * M + m] = v[k];
-      loo_m[(k * FB + fi) * M + m] = sub(sum, power(v[k]));
-    }
+    for (int k = 0; k < K; ++k) cp_async8(dst + k, src + k * taper);
   }
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+  for (int fi = warp; fi < fb; fi += n_warps)
+    for (int m = lane; m < M; m += 32) {
+      const float2* v = ms + fi * RS + m * K;
+      float sum = power(v[0]);
+#pragma unroll
+      for (int k = 1; k < K; ++k) sum = add(sum, power(v[k]));
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        loo_m[fi * RS + m * K + k] = sub(sum, power(v[k]));
+    }
   __syncthreads();
 
-  const float inv_k = 1.0f / K;
-  const float var_scale = (K - 1.0f) / K;
-  for (int c = threadIdx.x; c < FB * E; c += blockDim.x) {
-    const int fi = c / E, e = c - fi * E, f = f0 + fi;
-    if (f >= F) continue;                   // no barrier follows
-    float2 x[K];
-    float loo_e[K];
-    float sum_e = 0.f;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      x[k] = eeg[((wk + k) * F + f) * E + e];
-      sum_e = add(sum_e, power(x[k]));
-    }
-#pragma unroll
-    for (int k = 0; k < K; ++k) loo_e[k] = sub(sum_e, power(x[k]));
-
-    const size_t cell = ((size_t)w * F + f) * E + e;
-    float best_c = 0.f, best_lo = 0.f, best_hi = 0.f;
-    for (int m = 0; m < M; ++m) {
-      float cr[K], ci[K];
-      float sum_cr = 0.f, sum_ci = 0.f;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const float2 v = ms[(k * FB + fi) * M + m];
-        // conj(E)·M: re = er·mr + ei·mi, im = er·mi − ei·mr
-        cr[k] = add(mul(x[k].x, v.x), mul(x[k].y, v.y));
-        ci[k] = sub(mul(x[k].x, v.y), mul(x[k].y, v.x));
-        sum_cr = add(sum_cr, cr[k]);
-        sum_ci = add(sum_ci, ci[k]);
-      }
-      float z[K];
-      float sum_c = 0.f, sum_z = 0.f;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const float lcr = sub(sum_cr, cr[k]);
-        const float lci = sub(sum_ci, ci[k]);
-        const float num = add(mul(lcr, lcr), mul(lci, lci));
-        const float den = nan_max(mul(loo_e[k], loo_m[(k * FB + fi) * M + m]),
-                                  1e-30f);
-        const float ck = clip(num / den, 0.f, 1.f);
-        z[k] = fisher(ck);
-        sum_c += ck;
-        sum_z += z[k];
-      }
-      const float cm = clip(sum_c * inv_k, 0.f, 1.f);
-      const float z_mean = sum_z * inv_k;
-      float ss = 0.f;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const float d = z[k] - z_mean;
-        ss += d * d;
-      }
-      const float z_se = sqrtf(var_scale * ss);
-      const float zc = fisher(cm);
-      const float tl = tanhf(zc - t_crit * z_se);
-      const float th = tanhf(zc + t_crit * z_se);
-      const float cl = nan_min(tl * tl, cm);
-      const float cu = nan_max(th * th, cm);
-      if (EMG_MAX) {
-        if (m == 0 || cm > best_c) {
-          best_c = cm;
-          best_lo = cl;
-          best_hi = cu;
-        }
-      } else {
-        const size_t o = cell * M + m;
-        coh[o] = cm;
-        lo[o] = cl;
-        hi[o] = cu;
-      }
-    }
+  for (int c = c_first; c < cells; c += c_step) {
+    const int fi = c / E, e = c - fi * E;
+    if (c != c_first) load_eeg<K>(eeg, wk, F, E, f0 + fi, e, x, loo_e);
+    const float2* ms_f = ms + fi * RS;
+    const float* lm_f = loo_m + fi * RS;
     if (EMG_MAX) {
-      coh[cell] = best_c;
-      lo[cell] = best_lo;
-      hi[cell] = best_hi;
+      // L lanes a cell (1, or 2 at narrow montages), lane j scanning
+      // m = j, j + L, ...: the scan of m = 0, 1, ... in pieces.  m = 0
+      // seeds the pick; a later m takes it only when strictly larger; a
+      // lane whose first m is not 0 starts with no pick.
+      const int j = threadIdx.x % L;
+      float best_c = -INFINITY;
+      int best_m = -1;
+      if (j == 0) {
+        best_c = coherence_mean<K>(Cross<K>(x, ms_f), loo_e, lm_f);
+        best_m = 0;
+      }
+      for (int m = j == 0 ? L : j; m < M; m += L) {
+        const float cm = coherence_mean<K>(Cross<K>(x, ms_f + m * K),
+                                           loo_e, lm_f + m * K);
+        if (cm > best_c) {
+          best_c = cm;
+          best_m = m;
+        }
+      }
+      if (L == 2) {
+        // the pair's picks (a: even m, seeded at 0; b: odd m), combined
+        // as the one scan would: a NaN seed stands, else the larger
+        // value, else on a tie the smaller m
+        const unsigned pair = 3u << (lane & 30);
+        const float oc = __shfl_xor_sync(pair, best_c, 1);
+        const int om = __shfl_xor_sync(pair, best_m, 1);
+        const float ac = j ? oc : best_c, bc = j ? best_c : oc;
+        const int am = j ? om : best_m, bm = j ? best_m : om;
+        const bool take_b = ac == ac && bm >= 0
+            && (bc > ac || (bc == ac && bm < am));
+        best_m = take_b ? bm : am;
+      }
+      float cm, cl, cu;
+      const Cross<K> pick(x, ms_f + best_m * K);
+      if (L == 2)
+        jackknife_pair<K>(pick, loo_e, lm_f + best_m * K, t_crit, j,
+                          3u << (lane & 30), cm, cl, cu);
+      else
+        jackknife<K>(pick, loo_e, lm_f + best_m * K, t_crit, cm, cl, cu);
+      if (j == 0) {
+        const size_t cell = ((size_t)w * F + f0) * E + c;
+        coh[cell] = cm;                     // the pick's value, bit for bit
+        lo[cell] = cl;
+        hi[cell] = cu;
+      }
+    } else {
+      // lanes over m: a warp's (W, F, E, M) stores are consecutive
+      const size_t row = (((size_t)w * F + f0) * E + c) * M;
+      for (int m = lane; m < M; m += 32) {
+        float cm, cl, cu;
+        jackknife<K>(Cross<K>(x, ms_f + m * K), loo_e, lm_f + m * K,
+                     t_crit, cm, cl, cu);
+        coh[row + m] = cm;
+        lo[row + m] = cl;
+        hi[row + m] = cu;
+      }
     }
   }
 }
@@ -203,16 +418,34 @@ template <int K, bool EMG_MAX>
 cudaError_t launch(const float2* eeg, const float2* emg, float* coh,
                    float* lo, float* hi, int W, int F, int E, int M,
                    float t_crit, cudaStream_t stream) {
-  const size_t smem = (size_t)K * FB * M * (sizeof(float2) + sizeof(float));
   auto kernel = msc_jackknife_kernel<K, EMG_MAX>;
+  int device = 0, smem_max = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&smem_max,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               device);
+  if (err != cudaSuccess) return err;
+  // FB frequencies a block: ~THREADS working (f, e) threads, within the
+  // shared memory a block may hold and the F frequencies there are
+  const size_t per_f = ((size_t)K * M + 1) * (sizeof(float2) + sizeof(float));
+  // lanes per (f, e) in the EMG-max scan: 2 where E is narrow, so a
+  // block's shared memory serves twice the threads
+  const int L = EMG_MAX && E < 32 ? 2 : 1;
+  const int cells = THREADS / L;
+  int FB = E >= cells ? 1 : cells / E;
+  FB = (int)((size_t)FB * per_f > (size_t)smem_max ? smem_max / per_f : FB);
+  FB = FB < F ? FB : F;
+  if (FB < 1) return cudaErrorInvalidValue;     // M too large to stage
+  const size_t smem = FB * per_f;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
+    err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((F + FB - 1) / FB, W);
   kernel<<<grid, THREADS, smem, stream>>>(eeg, emg, coh, lo, hi, F, E, M,
-                                          t_crit);
+                                          FB, L, t_crit);
   return cudaGetLastError();
 }
 

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 from scipy.stats import t as _t_dist
 
-from mba_tpu_torch._device import resolve_device, synchronize, to_device
+from mba_tpu_torch._device import entry_device, synchronize, to_device
 from mba_tpu_torch.ops.cuda_msc import (coherence_ratio, fisher_atanh,
                                         inverse_fisher_atanh, msc_jackknife)
 from mba_tpu_torch.ops.dpss import (cmc_independence_threshold_host,
@@ -156,8 +156,9 @@ def multitaper_msc(
     are zeros on the full grid) and result dictionary as
     ``mba_tpu.ops.coherence.multitaper_msc``; arrays come back as numpy.
 
-    ``device``: where to compute (e.g. ``"cuda"``).  Default: the device
-    of a torch tensor input, else the CPU.  Integer ADC-count inputs
+    ``device``: where to compute.  Default: the device of a torch tensor
+    input, else the card (``"cuda"``); without a card the call raises
+    unless ``device="cpu"`` is given.  Integer ADC-count inputs
     (int16/int8) are accepted and cast to float32 on the device.
 
     Not in this port yet (each raises ``NotImplementedError``): a
@@ -178,7 +179,7 @@ def multitaper_msc(
             "input_transfer='int16' on float input (host int16 quantizer) "
             "is not ported; pass int16 ADC counts or float32 without it "
             "(ROADMAP 'Unsupported options')")
-    device = resolve_device(device, eeg_array, emg_array)
+    device = entry_device(device, eeg_array, emg_array)
 
     eeg_shape = tuple(np.shape(eeg_array))
     emg_shape = tuple(np.shape(emg_array))

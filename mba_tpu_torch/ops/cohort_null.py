@@ -43,10 +43,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from mba_tpu_torch._device import resolve_device, synchronize, to_device
+from mba_tpu_torch._device import entry_device, synchronize, to_device
 from mba_tpu_torch.ops.cuda_coeffs import _F32_TINY
-from mba_tpu_torch.ops.cuda_null import (null_epilogue, null_features,
-                                         null_tile, null_tile_plain,
+from mba_tpu_torch.ops.cuda_null import (feature_rows, null_epilogue,
+                                         null_features, null_tile,
+                                         null_tile_plain,
                                          prepare_null_coeffs)
 from mba_tpu_torch.ops.dpss import filtered_tapers
 from mba_tpu_torch.ops.framing import window_grid
@@ -151,7 +152,7 @@ def null_chunk(phi: torch.Tensor, state: NullState):
 
     phi: (J, S, K, F).  Returns (max_stat (S,), counts increment (F, N)).
     """
-    G = null_features(phase_features(phi))              # (F, S, J·P)
+    G = null_features(phase_features(phi))              # (F, J·P, S)
     return null_tile(G, state.coefT, state.base_flat, state.observed_flat,
                      state.n_subjects)
 
@@ -182,7 +183,7 @@ def null_chunk_pw(phases, state: NullState):
     """
     acc = None
     for w, phi in enumerate(phases):
-        inc = torch.bmm(null_features(phase_features(phi)), state.coefT[w])
+        inc = torch.bmm(feature_rows(phase_features(phi)), state.coefT[w])
         acc = inc if acc is None else acc.add_(inc)
     stat = state.base_flat[:, None, :] + acc / state.n_subjects
     return null_epilogue(stat, state.observed_flat)
@@ -335,7 +336,7 @@ def cohort_msc_rotation_null(
             raise _not_ported(f"transfer_dtype={transfer_dtype!r} "
                               "(host quantized upload)",
                               "'Unsupported options'")
-    device = resolve_device(device, eeg_cohort, emg_cohort)
+    device = entry_device(device, eeg_cohort, emg_cohort)
 
     eeg_shape = tuple(np.shape(eeg_cohort))
     emg_shape = tuple(np.shape(emg_cohort))
@@ -619,7 +620,7 @@ def cohort_msc_fft_null(
     ``torch.Generator(device).manual_seed(seed)``.  A chunk of S
     surrogates holds S·J·n_samples·M float32 resynthesised samples.
     """
-    device = resolve_device(device, eeg_cohort, emg_cohort)
+    device = entry_device(device, eeg_cohort, emg_cohort)
     if len(np.shape(eeg_cohort)) != 3 or len(np.shape(emg_cohort)) != 3:
         raise ValueError("cohort arrays must be (J, n_samples, n_channels)")
     if tuple(np.shape(eeg_cohort))[:2] != tuple(np.shape(emg_cohort))[:2]:
@@ -741,7 +742,8 @@ def cohort_msc_null(eeg_cohort, emg_cohort, sampling_freq: float,
     ``method='auto'`` runs the fft engine when :func:`fft_null_flops`
     fits ``fft_flop_budget`` and the rotation engine otherwise; the
     default budget is :data:`FFT_FLOP_BUDGET` for the device the call
-    runs on (``kw['device']``, else that of a tensor input, else the CPU).
+    runs on (``kw['device']``, else that of a tensor input, else the
+    card).
 
     ``**kw`` go to the chosen engine; rotation-only options are dropped
     with a note (``metadata['dropped_rotation_kwargs']``) when the fft
@@ -776,8 +778,8 @@ def cohort_msc_null(eeg_cohort, emg_cohort, sampling_freq: float,
                          n_surrogates)
     if method == "auto":
         if fft_flop_budget is None:
-            device = resolve_device(kw.get("device"), eeg_cohort,
-                                    emg_cohort)
+            device = entry_device(kw.get("device"), eeg_cohort,
+                                  emg_cohort)
             if device.type not in FFT_FLOP_BUDGET:
                 raise ValueError(f"no default fft_flop_budget for {device}")
             fft_flop_budget = FFT_FLOP_BUDGET[device.type]

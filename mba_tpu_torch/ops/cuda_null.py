@@ -2,7 +2,7 @@
 
 Replaces the Pallas kernel ``mba_tpu/ops/pallas_null.py:_null_tile_kernel``
 (:37-76) and its callers ``_pallas_call_null``/``null_chunk_pallas_body``.
-Per frequency: ``stat = base + (G · coefT) / J`` for S surrogates against
+Per frequency: ``stat = base + (Gᵀ · coefT) / J`` for S surrogates against
 N = E·M cells, reduced to per-cell exceedance counts over the real
 surrogates and a per-surrogate max over all (frequency, cell).  The
 (F, S, N) statistic never reaches device memory; the plain version below
@@ -18,7 +18,8 @@ import torch
 
 from mba_tpu_torch import _build
 
-CELL_TILE = 64       # cells per block: BN in csrc/null_tile.cu
+CELL_TILE = 128      # cells per block: BN in csrc/null_tile.cu
+
 
 def prepare_null_coeffs(coef_all: torch.Tensor) -> torch.Tensor:
     """One-time relayout for the kernel (``pallas_null.py:137-150``).
@@ -34,8 +35,17 @@ def prepare_null_coeffs(coef_all: torch.Tensor) -> torch.Tensor:
 
 
 def null_features(G_jsfp: torch.Tensor) -> torch.Tensor:
-    """Phase features (J, S, nF, P) → the kernel's (nF, S, J·P) layout,
-    flattened over (j, p) in the order of :func:`prepare_null_coeffs`."""
+    """Phase features (J, S, nF, P) → the kernel's k-major (nF, J·P, S)
+    layout, flattened over (j, p) in the order of
+    :func:`prepare_null_coeffs`: a J·P slice of it and of coefT is copied
+    to shared memory as it lies, with no transpose."""
+    J, S, nF, P = G_jsfp.shape
+    return G_jsfp.permute(2, 0, 3, 1).reshape(nF, J * P, S).contiguous()
+
+
+def feature_rows(G_jsfp: torch.Tensor) -> torch.Tensor:
+    """Phase features (J, S, nF, P) → row-major (nF, S, J·P), the layout
+    in which the plain products are formed with ``bmm``."""
     J, S, nF, P = G_jsfp.shape
     return G_jsfp.permute(2, 1, 0, 3).reshape(nF, S, J * P).contiguous()
 
@@ -51,7 +61,8 @@ def null_epilogue(stat: torch.Tensor, obs: torch.Tensor):
 def null_tile_plain(G: torch.Tensor, coefT: torch.Tensor,
                     base: torch.Tensor, obs: torch.Tensor, J: int):
     """Plain PyTorch version: returns (max_stat (S,), counts (nF, N))."""
-    stat = base[:, None, :] + torch.bmm(G, coefT) * (1.0 / J)  # (nF,S,N)
+    rows = G.transpose(1, 2).contiguous()      # feature_rows' layout
+    stat = base[:, None, :] + torch.bmm(rows, coefT) * (1.0 / J)
     return null_epilogue(stat, obs)
 
 
@@ -65,8 +76,8 @@ def _check(G, coefT, base, obs) -> None:
         if x.device != G.device:
             raise ValueError(f"{name} lies on {x.device}, G on {G.device}")
     if G.ndim != 3 or coefT.ndim != 3:
-        raise ValueError("G must be (nF, S, JP) and coefT (nF, JP, N)")
-    nF, S, JP = G.shape
+        raise ValueError("G must be (nF, JP, S) and coefT (nF, JP, N)")
+    nF, JP, S = G.shape
     if coefT.shape[:2] != (nF, JP):
         raise ValueError(f"coefT {tuple(coefT.shape)} does not match G "
                          f"{tuple(G.shape)}")
@@ -81,7 +92,8 @@ def null_tile(G: torch.Tensor, coefT: torch.Tensor, base: torch.Tensor,
               obs: torch.Tensor, J: int):
     """Surrogate statistic tile (see module docstring).
 
-    G: (nF, S, JP) float32 phase features; coefT: (nF, JP, N) float32;
+    G: (nF, JP, S) float32 phase features (:func:`null_features`);
+    coefT: (nF, JP, N) float32;
     base/obs: (nF, N) float32.  Returns (max_stat (S,) float32, counts
     (nF, N) int32 — this chunk's exceedances, for the caller to add).
     """
@@ -90,7 +102,7 @@ def null_tile(G: torch.Tensor, coefT: torch.Tensor, base: torch.Tensor,
         return null_tile_plain(G, coefT, base, obs, J)
     if G.device.type != "cuda":
         raise ValueError(f"unsupported device {G.device}")
-    nF, S, JP = G.shape
+    nF, JP, S = G.shape
     N = coefT.shape[2]
     n_tiles = -(-N // CELL_TILE)
     dev = G.device

@@ -24,7 +24,7 @@ from typing import Literal
 import numpy as np
 import torch
 
-from mba_tpu_torch._device import resolve_device, to_device
+from mba_tpu_torch._device import entry_device, to_device
 from mba_tpu_torch.ops.dpss import dpss_windows
 from mba_tpu_torch.ops.framing import frame_signal, window_grid
 
@@ -85,12 +85,13 @@ def multitaper_psd(input_array,
     ``mba_tpu.ops.spectral.multitaper_psd``.
 
     ``device``: where to compute; default the device of a tensor input,
-    else the CPU.  ``device_output=True`` returns the spectrogram as a
+    else the card (``device="cpu"`` for the CPU).  ``device_output=True``
+    returns the spectrogram as a
     float32 tensor on that device (time_centers and freqs stay numpy),
     for consumers that reduce it there (:func:`~mba_tpu_torch.pipeline.
     signal_features.band_aggregate_spectrogram`).
     """
-    device = resolve_device(device, input_array)
+    device = entry_device(device, input_array)
     x = _signal_columns(input_array, axis, device)
     n_samples = x.shape[0]
     window_samples = int(window_length_sec * sampling_freq)
@@ -140,7 +141,7 @@ def welch_psd(input_array, sampling_freq: float, nperseg: int,
 
     Returns (freqs, psd) with psd shaped (n_freqs, n_channels), numpy.
     """
-    device = resolve_device(device, input_array)
+    device = entry_device(device, input_array)
     x = _signal_columns(input_array, axis, device)
     nperseg = int(min(nperseg, x.shape[0]))
     noverlap = nperseg // 2
@@ -188,7 +189,7 @@ def amplitude_spectrum(input_array, sampling_freq: float,
 
     Parity: reference signal_features.py:2133-2185.
     """
-    device = resolve_device(device, input_array)
+    device = entry_device(device, input_array)
     x = to_device(input_array, device).to(torch.float32)
     if x.ndim == 1:
         x = x[:, None]

@@ -23,7 +23,7 @@ import time
 import numpy as np
 import torch
 
-from mba_tpu_torch._device import resolve_device, synchronize, to_device
+from mba_tpu_torch._device import entry_device, synchronize, to_device
 from mba_tpu_torch.ops.dpss import filtered_tapers
 from mba_tpu_torch.ops.framing import window_grid
 
@@ -287,14 +287,15 @@ def msc_phase_randomized_null(
     Each chunk's phases come from :func:`draw_chunk_phases` on a
     ``torch.Generator`` seeded with ``seed`` on ``device``.  The EEG
     spectra do not change between surrogates and are computed once.
-    ``device``: default the device of a tensor input, else the CPU.
+    ``device``: default the device of a tensor input, else the card
+    (``device="cpu"`` for the CPU).
     ``mesh`` (surrogates sharded over cards) is not ported: ROADMAP A10.
     """
     if mesh is not None:
         raise NotImplementedError(
             "msc_phase_randomized_null(mesh=...) (surrogates sharded over "
             "cards) is not ported; see ROADMAP A10")
-    device = resolve_device(device, eeg, emg)
+    device = entry_device(device, eeg, emg)
     t_up0 = time.perf_counter()
     eeg_t = to_device(eeg, device).to(torch.float32)
     emg_t = to_device(emg, device).to(torch.float32)

@@ -15,7 +15,8 @@ numerics are the port's :mod:`mba_tpu_torch.ops`:
   device and a numpy array on the host.
 
 Each function that computes takes ``device=`` (default: the device of a
-tensor input, else the CPU) and returns numpy, except
+tensor input, else the card; ``device="cpu"`` for the CPU) and returns
+numpy, except
 ``multitaper_psd(device_output=True)`` and the device path of
 ``band_aggregate_spectrogram``, which return tensors on the device.
 
@@ -33,7 +34,7 @@ from typing import Literal
 import numpy as np
 import torch
 
-from mba_tpu_torch._device import resolve_device, to_device
+from mba_tpu_torch._device import entry_device, to_device
 from mba_tpu_torch.channel_layout import (EEG_CHANNEL_IND_DICT,
                                           mirror_eeg_channel_list)  # noqa: F401
 from mba_tpu_torch.ops.coherence import (_msc_chunk, jackknife_t_crit,
@@ -81,7 +82,7 @@ def resample_data(data, original_sampling_freq, new_sampling_freq,
     """Linear-interpolation resampling (reference signal_features.py:40),
     in float32 on ``device``; returns numpy.  1-D input stays 1-D; 2-D
     input needs ``axis``."""
-    device = resolve_device(device, data)
+    device = entry_device(device, data)
     x = to_device(data, device).to(torch.float32)
     transpose = x.ndim == 2 and axis == 1
     if x.ndim == 2 and axis is None:
@@ -108,7 +109,7 @@ def jackknife_coherence_and_ci(tapers_filtered,
     in its full-grid mode (it launches or raises); on the CPU its plain
     version.
     """
-    device = resolve_device(device, eeg_window, emg_window)
+    device = entry_device(device, eeg_window, emg_window)
     tapers = torch.as_tensor(tapers_filtered, dtype=torch.float32,
                              device=device)
     K = tapers.shape[0]

@@ -170,7 +170,8 @@ class TestMultitaperMsc:
     def test_matches_jax_package(self, kw):
         eeg, emg = coupled_signals()
         ref = JC.multitaper_msc(eeg, emg, 256, window_length_sec=1.0, **kw)
-        got = TC.multitaper_msc(eeg, emg, 256, window_length_sec=1.0, **kw)
+        got = TC.multitaper_msc(eeg, emg, 256, window_length_sec=1.0,
+                                device="cpu", **kw)
         assert set(got) == set(ref)
         keys = [k for k in RESULT_KEYS if k in ref]
         for key in keys:
@@ -192,7 +193,7 @@ class TestMultitaperMsc:
         eeg, emg = coupled_signals(seconds=8)
         kw = dict(window_length_sec=1.0, use_jackknife=False)
         ref = JC.multitaper_msc(eeg, emg, 256, **kw)
-        got = TC.multitaper_msc(eeg, emg, 256, **kw)
+        got = TC.multitaper_msc(eeg, emg, 256, device="cpu", **kw)
         it = got["metadata"]["IT_unadjusted"]
         # cells within float32 noise of the threshold may flip
         near = np.abs(ref["coherence_raw"] - it) < 5e-5
@@ -207,15 +208,17 @@ class TestMultitaperMsc:
         ref = JC.multitaper_msc(eeg_i.astype(np.float32),
                                 emg_i.astype(np.float32), 256, **kw)
         got = TC.multitaper_msc(eeg_i, emg_i, 256, input_transfer="int16",
-                                **kw)
+                                device="cpu", **kw)
         assert_dicts_close(got, ref, RESULT_KEYS, atol=5e-5)
 
     def test_transposed_axes_and_timings(self):
         eeg, emg = coupled_signals()
-        ref = TC.multitaper_msc(eeg, emg, 256, window_length_sec=1.0)
+        ref = TC.multitaper_msc(eeg, emg, 256, window_length_sec=1.0,
+                                device="cpu")
         got = TC.multitaper_msc(eeg.T.copy(), emg.T.copy(), 256,
                                 window_length_sec=1.0, eeg_axis=1,
-                                emg_axis=1, collect_timings=True)
+                                emg_axis=1, collect_timings=True,
+                                device="cpu")
         np.testing.assert_array_equal(got["coherence_raw"],
                                       ref["coherence_raw"])
         for key in ("upload_sec", "upload_bytes", "compute_sec",
@@ -230,13 +233,15 @@ class TestMultitaperMsc:
     def test_unsupported_options_raise(self, kw):
         eeg, emg = coupled_signals()
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TC.multitaper_msc(eeg, emg, 256, **kw)
+            TC.multitaper_msc(eeg, emg, 256, device="cpu", **kw)
 
     def test_validation_errors_match(self):
         eeg, emg = coupled_signals()
         with pytest.raises(ValueError, match="window_mask"):
-            TC.multitaper_msc(eeg, emg, 256, window_mask=np.ones(3, bool))
+            TC.multitaper_msc(eeg, emg, 256, window_mask=np.ones(3, bool),
+                              device="cpu")
         with pytest.raises(ValueError, match="same number of samples"):
-            TC.multitaper_msc(eeg[:-10], emg, 256)
+            TC.multitaper_msc(eeg[:-10], emg, 256, device="cpu")
         with pytest.raises(ValueError, match="selects no frequency"):
-            TC.multitaper_msc(eeg, emg, 256, freq_range=(500.0, 600.0))
+            TC.multitaper_msc(eeg, emg, 256, freq_range=(500.0, 600.0),
+                              device="cpu")

@@ -60,7 +60,7 @@ def test_rotation_null_engines_match_jax(engine, overlap):
     before = cuda_coeffs.coeff_pairs.launches
     got = TN.cohort_msc_rotation_null(
         eeg, emg, n_surrogates=300, coeff_engine=engine,
-        overlap_upload=overlap, window_chunk=4, **KW)
+        overlap_upload=overlap, window_chunk=4, **KW, device="cpu")
     assert cuda_coeffs.coeff_pairs.launches == before
     _assert_observed(got["observed"], ref["observed"], engine)
     assert got["max_stat"].shape == (300,)
@@ -75,7 +75,8 @@ def test_rotation_null_engines_match_jax(engine, overlap):
 def test_chunked_engines_agree_with_gram_on_the_port():
     eeg, emg = _cohort(J=2, n_sec=16.0)
     obs = {e: TN.cohort_msc_rotation_null(eeg, emg, precompute_only=True,
-                                          coeff_engine=e, **KW)["observed"]
+                                          coeff_engine=e, device="cpu",
+                                          **KW)["observed"]
            for e in ("gram", "xla", "pallas")}
     np.testing.assert_array_equal(obs["xla"], obs["pallas"])
     _assert_observed(obs["xla"], obs["gram"], "gram")
@@ -91,7 +92,8 @@ def test_pallas_engine_null_matches_jax_in_distribution():
                                       compute_dtype=jnp.float32,
                                       coeff_engine="xla", **KW)
     got = TN.cohort_msc_rotation_null(eeg, emg, n_surrogates=n,
-                                      coeff_engine="pallas", **KW)
+                                      coeff_engine="pallas", device="cpu",
+                                      **KW)
     _assert_observed(got["observed"], ref["observed"], "pallas")
     assert got["p_fwe"] < 0.01 and ref["p_fwe"] < 0.01
     half = 3.0 * np.sqrt(2 * 0.95 * 0.05 / n)
@@ -111,7 +113,8 @@ def test_per_window_null_matches_jax():
     kw = dict(n_surrogates=n, rotation_mode="per_window", **KW)
     ref = JN.cohort_msc_rotation_null(eeg, emg, compute_dtype=jnp.float32,
                                       **kw)
-    got = TN.cohort_msc_rotation_null(eeg, emg, coeff_engine="pallas", **kw)
+    got = TN.cohort_msc_rotation_null(eeg, emg, coeff_engine="pallas",
+                                      device="cpu", **kw)
     _assert_observed(got["observed"], ref["observed"], "xla")
     assert got["metadata"]["timings"]["coeff_engine"] == "xla"
     for key in ("rotation_mode", "n_surrogates_drawn", "contraction_flops",
@@ -129,8 +132,8 @@ def test_per_window_observed_equals_shared():
     eeg, emg = _cohort(J=2, n_sec=16.0)
     kw = dict(precompute_only=True, coeff_engine="xla", **KW)
     a = TN.cohort_msc_rotation_null(eeg, emg, rotation_mode="per_window",
-                                    **kw)
-    b = TN.cohort_msc_rotation_null(eeg, emg, **kw)
+                                    **kw, device="cpu")
+    b = TN.cohort_msc_rotation_null(eeg, emg, **kw, device="cpu")
     np.testing.assert_allclose(a["observed"], b["observed"], rtol=1e-5,
                                atol=1e-6)
     assert a["metadata"]["rotation_mode"] == "per_window"
@@ -147,7 +150,8 @@ def test_per_window_observed_equals_shared():
 def test_rotation_null_guards(kw, match):
     eeg, emg = _cohort(J=2, n_sec=8.0)
     with pytest.raises(ValueError, match=match):
-        TN.cohort_msc_rotation_null(eeg, emg, FS, n_surrogates=10, **kw)
+        TN.cohort_msc_rotation_null(eeg, emg, FS, n_surrogates=10,
+                                    device="cpu", **kw)
 
 
 def _pw_state(seed, Wp=3, J=2, nF=4, nE=2, nM=5, K=3):
@@ -279,7 +283,7 @@ def test_fft_null_matches_jax():
     kw = dict(sampling_freq=FS, window_length_sec=2.0, band=(8.0, 60.0),
               n_surrogates=200, surrogate_chunk=25, seed=1)
     ref = JN.cohort_msc_fft_null(eeg, emg, **kw)
-    got = TN.cohort_msc_fft_null(eeg, emg, **kw)
+    got = TN.cohort_msc_fft_null(eeg, emg, **kw, device="cpu")
     np.testing.assert_allclose(got["observed"], ref["observed"], rtol=2e-5,
                                atol=2e-6)
     np.testing.assert_array_equal(got["freqs"], ref["freqs"])
@@ -298,10 +302,10 @@ def test_fft_null_matches_jax():
 def test_fft_null_input_validation():
     eeg, emg = _cohort(J=1, n_sec=8.0)
     with pytest.raises(ValueError, match="J, n_samples"):
-        TN.cohort_msc_fft_null(eeg[0], emg[0], FS)
+        TN.cohort_msc_fft_null(eeg[0], emg[0], FS, device="cpu")
     with pytest.raises(ValueError, match="no frequency bins"):
         TN.cohort_msc_fft_null(eeg, emg, FS, band=(200.0, 300.0),
-                               window_length_sec=0.25)
+                               window_length_sec=0.25, device="cpu")
 
 
 @pytest.mark.parametrize("method,budget,run", [
@@ -317,7 +321,7 @@ def test_cohort_msc_null_engine_choice_matches_jax(method, budget, run):
     ref = JN.cohort_msc_null(eeg, emg, FS, method=method,
                              fft_flop_budget=budget, **kw)
     got = TN.cohort_msc_null(eeg, emg, FS, method=method,
-                             fft_flop_budget=budget, **kw)
+                             fft_flop_budget=budget, **kw, device="cpu")
     choice, ref_choice = (r["metadata"]["engine_choice"] for r in (got, ref))
     assert choice == ref_choice
     assert choice["method_run"] == run
@@ -341,4 +345,4 @@ def test_cohort_msc_null_engine_choice_matches_jax(method, budget, run):
 def test_cohort_msc_null_rejects_unknown_method():
     eeg, emg = _cohort(J=1, n_sec=8.0)
     with pytest.raises(ValueError, match="method"):
-        TN.cohort_msc_null(eeg, emg, FS, method="bogus")
+        TN.cohort_msc_null(eeg, emg, FS, method="bogus", device="cpu")

@@ -161,7 +161,8 @@ def test_rotation_null_slice_matches_jax():
     n = 2000
     ref = JN.cohort_msc_rotation_null(eeg, emg, n_surrogates=n,
                                       compute_dtype=jnp.float32, **KW)
-    got = TN.cohort_msc_rotation_null(eeg, emg, n_surrogates=n, **KW)
+    got = TN.cohort_msc_rotation_null(eeg, emg, n_surrogates=n,
+                                      device="cpu", **KW)
     sc = float(np.abs(ref["observed"]).max())
     np.testing.assert_allclose(got["observed"], ref["observed"],
                                rtol=2e-4, atol=2e-5 * sc)
@@ -189,7 +190,7 @@ def test_rotation_null_precompute_only_and_adc_passthrough():
                                       emg_i.astype(np.float32),
                                       precompute_only=True, **KW)
     got = TN.cohort_msc_rotation_null(eeg_i, emg_i, transfer_dtype=np.int16,
-                                      precompute_only=True, **KW)
+                                      precompute_only=True, **KW, device="cpu")
     assert "max_stat" not in got
     sc = float(np.abs(ref["observed"]).max())
     np.testing.assert_allclose(got["observed"], ref["observed"],
@@ -206,4 +207,5 @@ def test_rotation_null_precompute_only_and_adc_passthrough():
 def test_unsupported_options_raise(kw):
     eeg, emg = _cohort(J=1, n_sec=8.0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TN.cohort_msc_rotation_null(eeg, emg, FS, n_surrogates=10, **kw)
+        TN.cohort_msc_rotation_null(eeg, emg, FS, n_surrogates=10,
+                                    device="cpu", **kw)

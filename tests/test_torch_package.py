@@ -204,7 +204,7 @@ def test_msc_wrapper_refuses_bad_input(case):
 
 
 def _bad_null_inputs():
-    G = torch.zeros((3, 13, 12))
+    G = torch.zeros((3, 12, 13))                        # (nF, JP, S)
     C = torch.zeros((3, 12, 100))
     b = torch.zeros((3, 100))
     return [
@@ -302,14 +302,33 @@ def test_msc_kernel_carries_nan_of_a_coherent_pair(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("J,K,S,N", [(2, 3, 13, 100), (3, 3, 70, 512),
-                                     (2, 5, 129, 4096 + 7)])
-def test_null_kernel_matches_plain_on_card(cuda, J, K, S, N):
-    """Ragged S (padded surrogate rows must not count), ragged J·P
-    (12, 18, 40 against the 16-deep slice) and ragged N.  max_stat
-    within 1e-5; counts equal except where float32 accumulation order
-    moves a stat across obs (at most 1e-4 of cells, by one)."""
-    nF = 4
+def test_msc_emg_max_carries_nan_of_a_coherent_pair(cuda):
+    """The coherent-pair test in the EMG-max mode: EEG channel 2's pick
+    is EMG channel 1 (coherence 1, the largest), whose CIs are NaN; the
+    CIs are formed after the scan, for the pick alone, and keep that
+    NaN.  Every other EEG channel's CIs are finite and equal the full
+    grid's at its pick."""
+    e, m = _spectra(3, 2, 256, 6, 3)
+    m[..., 1] = e[..., 2]
+    kf = _np(cuda_msc.msc_jackknife(e.to(cuda), m.to(cuda), 2.776,
+                                    emg_max=False))
+    km = _np(cuda_msc.msc_jackknife(e.to(cuda), m.to(cuda), 2.776,
+                                    emg_max=True))
+    idx, at_pick = _pick_and_take(kf, km)
+    assert (idx[..., 2] == 1).mean() > 0.9
+    pair = np.zeros(km["coherence"].shape, bool)
+    pair[..., 2] = idx[..., 2] == 1
+    for key in KEYS[1:]:
+        assert np.isnan(km[key][pair]).all(), key
+        assert not np.isnan(km[key][~pair]).any(), key
+        np.testing.assert_array_equal(km[key], at_pick[key], err_msg=key)
+    np.testing.assert_array_equal(km["coherence"], at_pick["coherence"])
+
+
+def _check_null_kernel(cuda, J, K, S, N, nF):
+    """max_stat within 1e-5; counts equal except where float32
+    accumulation order moves a stat across obs (at most 1e-4 of cells,
+    by one); no cell counts more than the S real surrogates."""
     coef, base, obs = null_toy(J, nF, N, K, seed=S)
     state = TN.null_state(t32(base).to(cuda), t32(coef).to(cuda),
                           t32(obs).to(cuda))
@@ -331,6 +350,98 @@ def test_null_kernel_matches_plain_on_card(cuda, J, K, S, N):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("J,K,S,N", [(2, 3, 13, 100), (3, 3, 70, 512),
+                                     (2, 5, 129, 4096 + 7)])
+def test_null_kernel_matches_plain_on_card(cuda, J, K, S, N):
+    """Ragged S (padded surrogate rows must not count), ragged J·P
+    (12, 18, 40 against the 16-deep slice) and ragged N, 4 frequencies."""
+    _check_null_kernel(cuda, J, K, S, N, nF=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [127, 128, 129])
+@pytest.mark.parametrize("J,K", [(2, 3), (3, 3), (2, 5), (12, 5)])
+def test_null_kernel_at_the_tile_edges_on_card(cuda, J, K, S):
+    """The 128 × 128 block tile's edges: S one short of, equal to and one
+    past a surrogate tile; N = 4096 + 7, three cells into a last cell
+    tile and not a multiple of 4 (the 4-byte copy path); J·P = 12, 18,
+    40 and 240 against the 16-deep slice; one frequency."""
+    _check_null_kernel(cuda, J, K, S, 4096 + 7, nF=1)
+
+
+@pytest.mark.cuda
+def test_null_kernel_16_byte_copies_on_card(cuda):
+    """S and N multiples of 4: both operands take the 16-byte copies, as
+    on the main path (S = 500, N = 4096), here with a ragged S tile."""
+    _check_null_kernel(cuda, 12, 5, 500, 4096, nF=8)
+
+
+def _random_spectra(seed, W, K, F, E, M, device):
+    """Random complex64 spectra (W, K, F, E) and (W, K, F, M) with a
+    common part, so each EEG channel has a clear EMG favourite."""
+    rng = np.random.default_rng(seed)
+
+    def cplx(*shape):
+        return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    common = cplx(W, K, F, 1)
+    e = common + cplx(W, K, F, E)
+    m = rng.uniform(0.2, 2.0, M) * common + cplx(W, K, F, M)
+    return (torch.from_numpy(e.astype(np.complex64)).to(device),
+            torch.from_numpy(m.astype(np.complex64)).to(device))
+
+
+def _pick_and_take(kf, km):
+    """The full grid's first argmax over EMG, and its values there."""
+    idx = np.argmax(kf["coherence"], axis=-1)[..., None]
+    return idx[..., 0], {k: np.take_along_axis(kf[k], idx, -1)[..., 0]
+                         for k in KEYS}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [3, 5, 8])
+@pytest.mark.parametrize("E,M", [(64, 64), (11, 64), (1, 64), (3, 64)])
+def test_msc_emg_max_is_the_full_grid_at_its_pick_on_card(cuda, K, E, M):
+    """The EMG-max mode computes the CIs of its pick only, through the
+    same code as the full grid: coherence and both CIs bitwise equal to
+    the full grid's at the first argmax, at the main path's 64×64
+    montage, the task CMC's 11×64, and E = 1 and 3 (the blocks' widest
+    frequency spans).  F = 129 leaves a ragged frequency block."""
+    e, m = _random_spectra(K * 100 + E, 2, K, 129, E, M, cuda)
+    kf = _np(cuda_msc.msc_jackknife(e, m, 2.5, emg_max=False))
+    km = _np(cuda_msc.msc_jackknife(e, m, 2.5, emg_max=True))
+    _, at_pick = _pick_and_take(kf, km)
+    for key in KEYS:
+        assert km[key].shape == (2, 129, E)
+        np.testing.assert_array_equal(km[key], at_pick[key], err_msg=key)
+    assert not np.isnan(km["ci_lower"]).any()
+
+
+@pytest.mark.cuda
+def test_msc_emg_max_tie_takes_the_first_channel_on_card(cuda):
+    """EMG channel 5 duplicates channel 2, which is near-coherent with
+    EEG channel 0: the two coherence values are the same floats, so the
+    scan's strict '>' keeps channel 2, the first of the maxima, as
+    jnp.argmax does, and the result is the full grid's at channel 2.
+    (Equal inputs give equal CIs, so the outputs cannot tell channel 2
+    from 5: the test holds them to the first index's values.)"""
+    e, m = _random_spectra(11, 3, 5, 65, 7, 8, "cpu")
+    m[..., 2] = 3.0 * e[..., 0] + 0.1 * m[..., 2]
+    m[..., 5] = m[..., 2]
+    kf = _np(cuda_msc.msc_jackknife(e.to(cuda), m.to(cuda), 2.5,
+                                    emg_max=False))
+    km = _np(cuda_msc.msc_jackknife(e.to(cuda), m.to(cuda), 2.5,
+                                    emg_max=True))
+    np.testing.assert_array_equal(kf["coherence"][..., 2],
+                                  kf["coherence"][..., 5])
+    idx, at_pick = _pick_and_take(kf, km)
+    tied = idx == 2
+    assert tied[..., 0].all()               # EEG 0's maximum is the tie
+    for key in KEYS:
+        np.testing.assert_array_equal(km[key], at_pick[key], err_msg=key)
+        np.testing.assert_array_equal(km[key][tied], kf[key][..., 2][tied])
+
+
+@pytest.mark.cuda
 def test_multitaper_msc_on_card_runs_the_kernel(cuda):
     """The entry point on the card against the same call on the CPU
     (plain versions), CIs within ``ci_tolerance`` of the replicates."""
@@ -338,7 +449,7 @@ def test_multitaper_msc_on_card_runs_the_kernel(cuda):
     before = cuda_msc.msc_jackknife.launches
     got = TC.multitaper_msc(eeg, emg, 256, device=cuda)
     assert cuda_msc.msc_jackknife.launches > before
-    ref = TC.multitaper_msc(eeg, emg, 256)
+    ref = TC.multitaper_msc(eeg, emg, 256, device="cpu")
     assert got["metadata"] == ref["metadata"]
     np.testing.assert_allclose(got["coherence_raw"], ref["coherence_raw"],
                                atol=5e-5)
@@ -362,7 +473,7 @@ def test_rotation_null_on_card_runs_the_kernel(cuda):
     before = cuda_null.null_tile.launches
     got = TN.cohort_msc_rotation_null(eeg, emg, device=cuda, **kw)
     assert cuda_null.null_tile.launches == before + 3
-    ref = TN.cohort_msc_rotation_null(eeg, emg, **kw)
+    ref = TN.cohort_msc_rotation_null(eeg, emg, **kw, device="cpu")
     sc = float(np.abs(ref["observed"]).max())
     np.testing.assert_allclose(got["observed"], ref["observed"],
                                rtol=2e-4, atol=2e-5 * sc)
@@ -444,7 +555,7 @@ def test_rotation_engines_on_card_match_cpu(cuda, kw):
     got = TN.cohort_msc_rotation_null(eeg, emg, device=cuda, **args)
     n_launched = cuda_coeffs.coeff_pairs.launches - before
     assert n_launched == (6 if kw.get("coeff_engine") == "pallas" else 0)
-    ref = TN.cohort_msc_rotation_null(eeg, emg, **args)
+    ref = TN.cohort_msc_rotation_null(eeg, emg, **args, device="cpu")
     np.testing.assert_allclose(got["observed"], ref["observed"],
                                rtol=2e-5, atol=2e-6)
     assert got["max_stat"].shape == (600,)
@@ -478,16 +589,17 @@ def test_spectral_estimators_on_card_match_cpu(cuda, log_scale):
     dev, _, _ = TS.multitaper_psd(x, 256.0, device=cuda, device_output=True,
                                   **kw)
     assert dev.device.type == "cuda"
-    ref = TS.multitaper_psd(x, 256.0, **kw)[0]
+    ref = TS.multitaper_psd(x, 256.0, **kw, device="cpu")[0]
     if log_scale:
         np.testing.assert_allclose(dev.cpu().numpy(), ref, rtol=0, atol=1e-4)
     else:
         np.testing.assert_allclose(dev.cpu().numpy(), ref, rtol=1e-4,
                                    atol=1e-6 * np.abs(ref).max())
     np.testing.assert_allclose(TS.welch_psd(x, 256.0, 512, device=cuda)[1],
-                               TS.welch_psd(x, 256.0, 512)[1], rtol=1e-4)
+                               TS.welch_psd(x, 256.0, 512, device="cpu")[1],
+                               rtol=1e-4)
     a = TS.amplitude_spectrum(x, 256.0, device=cuda)[0]
-    b = TS.amplitude_spectrum(x, 256.0)[0]
+    b = TS.amplitude_spectrum(x, 256.0, device="cpu")[0]
     np.testing.assert_allclose(a, b, rtol=0, atol=1e-6 * np.abs(b).max())
     r = resample_linear(t32(x).to(cuda), 256.0, 200.0).cpu().numpy()
     np.testing.assert_allclose(r, resample_linear(t32(x), 256.0,
@@ -534,7 +646,8 @@ def test_task_wise_cmc_on_card_runs_the_kernel(cuda, threshold):
     got = TF.compute_task_wise_aggregated_cmc(eeg, emg, 256, "flexor",
                                               device=cuda, **kw)
     assert cuda_msc.msc_jackknife.launches > before
-    ref = TF.compute_task_wise_aggregated_cmc(eeg, emg, 256, "flexor", **kw)
+    ref = TF.compute_task_wise_aggregated_cmc(eeg, emg, 256, "flexor",
+                                              device="cpu", **kw)
     np.testing.assert_allclose(got[0], ref[0], rtol=0, atol=5e-5)
     sub = eeg[:, [TF.EEG_CHANNEL_IND_DICT[c]
                   for c in CMC_EEG_CHANNEL_SUBSET]]
@@ -559,7 +672,8 @@ def test_jackknife_coherence_and_ci_on_card_runs_the_kernel(cuda):
     got = TF.jackknife_coherence_and_ci(tapers, eeg, emg, 256.0, 256,
                                         device=cuda)
     assert cuda_msc.msc_jackknife.launches == before + 1
-    ref = TF.jackknife_coherence_and_ci(tapers, eeg, emg, 256.0, 256)
+    ref = TF.jackknife_coherence_and_ci(tapers, eeg, emg, 256.0, 256,
+                                        device="cpu")
     np.testing.assert_allclose(got[0], ref[0], rtol=0, atol=5e-5)
     e, m = (TC.tapered_rfft(t32(x)[None], t32(tapers)) for x in (eeg, emg))
     tol = cuda_msc.ci_tolerance(cuda_msc.loo_coherence_max(e, m)[0].numpy())
@@ -582,7 +696,7 @@ def test_phase_null_on_card_matches_cpu(cuda, monkeypatch):
     monkeypatch.setattr(TSu, "draw_chunk_phases", _cpu_phases(5))
     got = TSu.msc_phase_randomized_null(eeg, emg, 2048.0, device=cuda, **kw)
     monkeypatch.setattr(TSu, "draw_chunk_phases", _cpu_phases(5))
-    ref = TSu.msc_phase_randomized_null(eeg, emg, 2048.0, **kw)
+    ref = TSu.msc_phase_randomized_null(eeg, emg, 2048.0, **kw, device="cpu")
     np.testing.assert_allclose(got["observed"], ref["observed"], rtol=0,
                                atol=5e-5)
     np.testing.assert_allclose(got["max_stat"], ref["max_stat"], rtol=1e-4,

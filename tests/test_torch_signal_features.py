@@ -180,7 +180,7 @@ def test_mask_from_spans_takes_datetime():
 def test_resample_data_matches_jax(shape, fs_in, fs_out, axis):
     x = np.random.default_rng(0).standard_normal(shape)
     ref = JF.resample_data(x, fs_in, fs_out, axis=axis)
-    got = TF.resample_data(x, fs_in, fs_out, axis=axis)
+    got = TF.resample_data(x, fs_in, fs_out, axis=axis, device="cpu")
     assert got.shape == ref.shape
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
 
@@ -210,7 +210,8 @@ def test_jackknife_coherence_and_ci_matches_jax(ws, nw, nE, nM):
     tapers = filtered_tapers(ws, nw, 0.9)
     ref = JF.jackknife_coherence_and_ci(tapers, eeg, emg, 128.0, ws)
     before = cuda_msc.msc_jackknife.launches
-    got = TF.jackknife_coherence_and_ci(tapers, eeg, emg, 128.0, ws)
+    got = TF.jackknife_coherence_and_ci(tapers, eeg, emg, 128.0, ws,
+                                        device="cpu")
     assert cuda_msc.msc_jackknife.launches == before     # CPU: plain
     assert got[0].shape == ref[0].shape == (ws // 2 + 1, nE, nM)
     e, m = (TC.tapered_rfft(t32(x)[None], t32(tapers)) for x in (eeg, emg))
@@ -239,9 +240,9 @@ def test_snr_and_dft_wrappers_match_jax():
     t = np.arange(fs * 8) / fs
     x = (np.sin(2 * np.pi * 21.5 * t)
          + 0.5 * np.random.default_rng(2).standard_normal(len(t)))
-    assert TF.compute_spectral_snr(x, fs) == \
+    assert TF.compute_spectral_snr(x, fs, device="cpu") == \
         pytest.approx(JF.compute_spectral_snr(x, fs), abs=1e-3)
-    a, f = TF.discrete_fourier_transform(x, fs)
+    a, f = TF.discrete_fourier_transform(x, fs, device="cpu")
     b, g = JF.discrete_fourier_transform(x, fs)
     np.testing.assert_array_equal(f, g)
     np.testing.assert_allclose(a, b, rtol=0, atol=1e-6 * np.abs(b).max())
@@ -278,7 +279,7 @@ def test_task_wise_cmc_matches_jax(kw):
     args = (eeg if subset else eeg[:, :4], emg, fs, "flexor")
     kw = dict(window_size_sec=1.0, eeg_channel_subset=subset, **kw)
     ref = JF.compute_task_wise_aggregated_cmc(*args, **kw)
-    got = TF.compute_task_wise_aggregated_cmc(*args, **kw)
+    got = TF.compute_task_wise_aggregated_cmc(*args, **kw, device="cpu")
     assert len(got) == len(ref)
     if not kw.get("use_jackknife", True):
         np.testing.assert_allclose(got[0], ref[0], rtol=0, atol=MSC_ATOL)
@@ -306,7 +307,8 @@ def test_task_wise_cmc_from_the_log_frame(enriched, tmp_path):
     ref = JF.compute_task_wise_aggregated_cmc(eeg, emg, fs, "extensor", **kw)
     got = TF.compute_task_wise_aggregated_cmc(eeg, emg, fs, "extensor",
                                               save_dir=tmp_path,
-                                              timings_out=timings, **kw)
+                                              timings_out=timings, device="cpu",
+                                              **kw)
     e = eeg[:, [tlayout.EEG_CHANNEL_IND_DICT[c]
                 for c in tcbpa.CMC_EEG_CHANNEL_SUBSET]]
     _assert_cmc_close(got, ref, _ci_tol(e, emg, fs, 2.0, emg_max=True))
@@ -328,9 +330,11 @@ def test_task_wise_cmc_refusals():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TF.compute_task_wise_aggregated_cmc(eeg[:, :2], emg, fs, "flexor",
                                             window_size_sec=1.0,
-                                            transfer_dtype=np.int16)
+                                            transfer_dtype=np.int16,
+                                            device="cpu")
     with pytest.raises(ValueError, match="same number of samples"):
-        TF.compute_task_wise_aggregated_cmc(eeg[:-5], emg, fs, "flexor")
+        TF.compute_task_wise_aggregated_cmc(eeg[:-5], emg, fs, "flexor",
+                                            device="cpu")
 
 
 def test_spectrogram_f16_storage(tmp_path):
@@ -514,7 +518,7 @@ def test_workflow_entry_points_match_jax(enriched, tmp_path):
     for d in dirs.values():
         d.mkdir()
     JW.extract_psd_features(dirs["jax"], eeg, flex, ext, fs)
-    TW.extract_psd_features(dirs["torch"], eeg, flex, ext, fs)
+    TW.extract_psd_features(dirs["torch"], eeg, flex, ext, fs, device="cpu")
     for modality in ("eeg", "emg_1_flexor", "emg_2_extensor"):
         got, ref = (TF.fetch_stored_spectrograms(dirs[p], "PSD", modality)
                     for p in ("torch", "jax"))
@@ -523,7 +527,7 @@ def test_workflow_entry_points_match_jax(enriched, tmp_path):
     JW.extract_cmc_features(dirs["jax"], eeg, flex, ext, fs, enriched,
                             handedness="Left")
     TW.extract_cmc_features(dirs["torch"], eeg, flex, ext, fs, enriched,
-                            handedness="Left")
+                            handedness="Left", device="cpu")
     mirrored = tlayout.mirror_eeg_channel_list(
         tcbpa.CMC_EEG_CHANNEL_SUBSET, input_is_left=True)
     for muscle in ("Flexor", "Extensor"):

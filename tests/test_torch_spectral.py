@@ -79,7 +79,7 @@ def test_multitaper_psd_matches_jax(kw):
     x = _synthetic()
     kw = dict(dict(window_length_sec=0.5, overlap_frac=0.5), **kw)
     ref, t_ref, f_ref = JS.multitaper_psd(x, 256, axis=0, **kw)
-    got, t_got, f_got = TS.multitaper_psd(x, 256, axis=0, **kw)
+    got, t_got, f_got = TS.multitaper_psd(x, 256, axis=0, **kw, device="cpu")
     assert isinstance(got, np.ndarray)
     _assert_psd_close(got, ref, kw["apply_log_scale"])
     np.testing.assert_array_equal(t_got, t_ref)
@@ -98,15 +98,15 @@ def test_multitaper_psd_layouts_match_jax(layout):
         counts = np.round(x * 1000).astype(np.int16)
         args, ref_x = dict(input_array=counts, axis=0), counts
     ref = JS.multitaper_psd(ref_x, 256, axis=0, **kw)[0]
-    got = TS.multitaper_psd(sampling_freq=256, **args, **kw)[0]
+    got = TS.multitaper_psd(sampling_freq=256, **args, **kw, device="cpu")[0]
     _assert_psd_close(got, ref, False)
 
 
 def test_multitaper_psd_device_output_is_a_tensor():
     x = _synthetic(n_ch=2)
-    host, tc_h, fr_h = TS.multitaper_psd(x, 256.0, axis=0)
+    host, tc_h, fr_h = TS.multitaper_psd(x, 256.0, axis=0, device="cpu")
     dev, tc_d, fr_d = TS.multitaper_psd(t32(x), 256.0, axis=0,
-                                        device_output=True)
+                                        device_output=True, device="cpu")
     assert isinstance(dev, torch.Tensor) and dev.dtype == torch.float32
     np.testing.assert_array_equal(dev.numpy(), host)
     np.testing.assert_array_equal(tc_d, tc_h)
@@ -115,7 +115,7 @@ def test_multitaper_psd_device_output_is_a_tensor():
 
 def test_multitaper_psd_needs_axis_for_2d():
     with pytest.raises(AttributeError, match="axis"):
-        TS.multitaper_psd(_synthetic(), 256.0)
+        TS.multitaper_psd(_synthetic(), 256.0, device="cpu")
 
 
 @pytest.mark.parametrize("nperseg,axis", [(1024, 0), (256, 0), (99, 1),
@@ -124,7 +124,8 @@ def test_welch_psd_matches_jax(nperseg, axis):
     x = _synthetic(seconds=8)
     arr = x.T.copy() if axis == 1 else x
     f_ref, p_ref = JS.welch_psd(arr, 256, nperseg=nperseg, axis=axis)
-    f_got, p_got = TS.welch_psd(arr, 256, nperseg=nperseg, axis=axis)
+    f_got, p_got = TS.welch_psd(arr, 256, nperseg=nperseg, axis=axis,
+                                device="cpu")
     np.testing.assert_array_equal(f_got, f_ref)
     assert p_got.shape == p_ref.shape and p_got.dtype == np.float32
     np.testing.assert_allclose(p_got, p_ref, rtol=WELCH_RTOL)
@@ -136,10 +137,10 @@ def test_spectral_snr_matches_jax(target):
     ref, f_ref, p_ref = JS.spectral_snr(x, 256, target_freq=target,
                                         return_psd=True)
     got, f_got, p_got = TS.spectral_snr(x, 256, target_freq=target,
-                                        return_psd=True)
+                                        return_psd=True, device="cpu")
     assert got == pytest.approx(ref, abs=1e-3)
     np.testing.assert_allclose(p_got, p_ref, rtol=WELCH_RTOL)
-    assert TS.spectral_snr(x * 7.3, 256, target_freq=target) == \
+    assert TS.spectral_snr(x * 7.3, 256, target_freq=target, device="cpu") == \
         pytest.approx(got, abs=1e-3)
 
 
@@ -149,7 +150,7 @@ def test_amplitude_spectrum_matches_jax(layout):
     arr, axis = {"2d": (x, 0), "1d": (x[:, 0], 0), "axis1": (x.T, 1),
                  "odd": (x[:-1], 0)}[layout]
     a_ref, f_ref = JS.amplitude_spectrum(arr, 256, axis=axis)
-    a_got, f_got = TS.amplitude_spectrum(arr, 256, axis=axis)
+    a_got, f_got = TS.amplitude_spectrum(arr, 256, axis=axis, device="cpu")
     np.testing.assert_array_equal(f_got, f_ref)
     assert a_got.shape == a_ref.shape
     np.testing.assert_allclose(a_got, a_ref, rtol=0,
@@ -159,7 +160,8 @@ def test_amplitude_spectrum_matches_jax(layout):
 def test_amplitude_spectrum_of_a_sine():
     fs = 128
     t = np.arange(fs * 4) / fs
-    amp, freqs = TS.amplitude_spectrum(2.5 * np.sin(2 * np.pi * 16 * t), fs)
+    amp, freqs = TS.amplitude_spectrum(2.5 * np.sin(2 * np.pi * 16 * t), fs,
+                                       device="cpu")
     assert freqs[np.argmax(amp[:, 0])] == pytest.approx(16.0, abs=0.3)
     assert amp.max() == pytest.approx(2.5, rel=1e-3)
 

@@ -225,7 +225,7 @@ def test_null_matches_jax_on_injected_phases(monkeypatch, case):
               **case)
     ref = JS.msc_phase_randomized_null(eeg, emg, 128, **kw)
     monkeypatch.setattr(TS, "draw_chunk_phases", jax_chunk_phases(3))
-    got = TS.msc_phase_randomized_null(eeg, emg, 128, **kw)
+    got = TS.msc_phase_randomized_null(eeg, emg, 128, **kw, device="cpu")
     _assert_null_close(got, ref, case.get("max_stat_only", False))
 
 
@@ -237,7 +237,7 @@ def test_null_takes_int16_counts_and_one_channel(monkeypatch):
     ref = JS.msc_phase_randomized_null(*[c.astype(np.float32)
                                          for c in counts], 128, **kw)
     monkeypatch.setattr(TS, "draw_chunk_phases", jax_chunk_phases(1))
-    got = TS.msc_phase_randomized_null(*counts, 128, **kw)
+    got = TS.msc_phase_randomized_null(*counts, 128, **kw, device="cpu")
     _assert_null_close(got, ref, False)
 
 
@@ -248,14 +248,16 @@ def test_null_on_its_own_generator_detects_coupling():
     eeg, emg = _coupled(9, seconds=16, drift=20.0)
     res = TS.msc_phase_randomized_null(
         eeg, emg, 128, n_surrogates=100, window_length_sec=1.0,
-        band=(8.0, 40.0), quantiles=(0.95,), surrogate_chunk=50, seed=1)
+        band=(8.0, 40.0), quantiles=(0.95,), surrogate_chunk=50, seed=1,
+        device="cpu")
     assert res["observed"][0, 0, 0] > 0.9
     assert res["null_quantiles"][0.95][0, 0, 0] > 0.9
     assert res["p_fwe"] < 0.05
     assert np.quantile(res["max_stat"], 0.95) < 0.8
     again = TS.msc_phase_randomized_null(
         eeg, emg, 128, n_surrogates=100, window_length_sec=1.0,
-        band=(8.0, 40.0), quantiles=(0.95,), surrogate_chunk=50, seed=1)
+        band=(8.0, 40.0), quantiles=(0.95,), surrogate_chunk=50, seed=1,
+        device="cpu")
     np.testing.assert_array_equal(again["max_stat"], res["max_stat"])
 
 
@@ -263,11 +265,11 @@ def test_null_options_that_raise():
     eeg, emg = _coupled(13)
     with pytest.raises(NotImplementedError, match="A10"):
         TS.msc_phase_randomized_null(eeg, emg, 128, n_surrogates=8,
-                                     mesh=object())
+                                     mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="selects no valid"):
         TS.msc_phase_randomized_null(eeg, emg, 128, n_surrogates=8,
                                      band=(70.0, 60.0), surrogate_chunk=8,
-                                     max_stat_only=True)
+                                     max_stat_only=True, device="cpu")
 
 
 def test_null_observed_equals_spectrum_mean():
@@ -277,7 +279,7 @@ def test_null_observed_equals_spectrum_mean():
     eeg, emg = _coupled(14, nE=2, nM=2)
     res = TS.msc_phase_randomized_null(eeg, emg, 128, n_surrogates=4,
                                        window_length_sec=1.0,
-                                       surrogate_chunk=4)
+                                       surrogate_chunk=4, device="cpu")
     starts, _ = window_grid(len(eeg), 128, 64, 128.0)
     tapers = t32(filtered_tapers(128, 3, 0.9))
     ref = TS._msc_spectrum_mean(frame_signal(t32(eeg), starts, 128),
