@@ -12,7 +12,9 @@ result):
    versions.  Without a card the script stops here with exit code 1;
 2. build the hand-written kernels from ``mba_tpu_torch/csrc`` with nvcc;
 3. each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it, with CUDA-event times of both;
+   shapes the main path gives it, with CUDA-event times of both (B3 also
+   in its accumulate form over two chunks, with the registers and spills
+   ``nvcc -Xptxas -v`` reports for each of its K instances);
 4. the port on a small input on the card against the same call on the
    CPU, where every kernel wrapper runs its plain version;
 5. the main paths at ``bench.py``'s configuration, each with every
@@ -55,6 +57,8 @@ from __future__ import annotations
 
 import datetime
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -119,6 +123,7 @@ QUANTILE_CELLS = 1e-3   # cells whose null quantile may move by one bin
 # operations and its bytes over these
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+QUEUE_AHEAD_CYCLES = 50_000_000   # ~25 ms of spin at the H100's ~2 GHz
 
 
 def log(msg: str) -> None:
@@ -173,11 +178,14 @@ def make_cohort(n_subjects, seconds, n_eeg, n_emg, seed=9):
 
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds per call between CUDA events, after one warm
-    call."""
+    call.  A ~25 ms spin kernel goes first, so the host queues the timed
+    calls while the card waits and a kernel shorter than its wrapper's
+    host time is timed on the card, not on the host."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -395,12 +403,71 @@ def bmm_ms(G, coefT, reps) -> float:
     return ms
 
 
+def ptxas_report() -> dict:
+    """Registers and spills of each instance of B3, as ``nvcc -Xptxas -v``
+    reports them for the build's flags: {"K=5 wide": {"registers": ..,
+    "spill_stores": .., "spill_loads": ..}, ...} (bytes for spills);
+    "wide" is the instance whose lanes span 32 EMG channels (M = 64 on the
+    main path), "narrow" the one for fewer."""
+    src = _build.CSRC_DIR / "coeff_pairs.cu"
+    obj = _build.BUILD_DIR / f"ptxas_report.{os.getpid()}.o"
+    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+           "-o", str(obj), str(src)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600)
+    finally:
+        obj.unlink(missing_ok=True)
+    _require(proc.returncode == 0, f"nvcc -Xptxas -v failed:\n"
+             f"{proc.stdout}{proc.stderr}")
+    out, k = {}, None
+    for line in (proc.stdout + proc.stderr).splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            inst = re.search(r"coeff_pairs_kernelILi(\d+)E\w*?Lb([01])E",
+                             entry.group(1))
+            k = (f"K={inst.group(1)} {('narrow', 'wide')[int(inst.group(2))]}"
+                 if inst else None)
+            continue
+        if k is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill:
+            out.setdefault(k, {}).update(spill_stores=int(spill.group(1)),
+                                         spill_loads=int(spill.group(2)))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            out.setdefault(k, {})["registers"] = int(used.group(1))
+    _require(sorted(out) == sorted(f"K={k} {w}" for k in range(2, 9)
+                                   for w in ("narrow", "wide")),
+             f"ptxas report lacks an instance: {sorted(out)}")
+    return out
+
+
+def _coeff_excess(got, ref, wsum, what) -> tuple[dict, dict]:
+    """Per output, the largest |kernel − plain| / wsum and its ratio to
+    COEFF_ATOL + COEFF_RTOL·|plain| / wsum."""
+    errs, excess = {}, {}
+    for name, a, b in zip(("diag", "pr", "pi"), got, ref):
+        _require(bool(torch.isfinite(a).all()), f"{what} {name}: non-finite")
+        d = (a - b).abs() / wsum
+        bound = COEFF_ATOL + COEFF_RTOL * b.abs() / wsum
+        errs[name] = float(d.max())
+        excess[name] = float((d / bound).max())
+    return errs, excess
+
+
 def check_coeff_kernel(cohort, device, reps=10) -> dict:
     """B3 against its plain version at the main path's chunk: the first
     WINDOW_CHUNK windows of the bench cohort's first subject, their
     weights from the disjoint subset (so half of them are 0), K = 5,
     13-100 Hz (nF = 175), 64×64.  The sums over the chunk's weight sum
-    within COEFF_RTOL / COEFF_ATOL."""
+    within COEFF_RTOL / COEFF_ATOL.  Then the accumulate form, as
+    ``rotation_coeffs_subject`` runs it: the next WINDOW_CHUNK windows
+    added by the kernel into the first chunk's sums (``out=``), against
+    the plain version's ``add_``, over both chunks' weight sum.  The
+    registers and spills nvcc reports for each K go with the times."""
     ws = int(WINDOW_SEC * FS)
     tapers = torch.as_tensor(filtered_tapers(ws, NW, 0.9),
                              dtype=torch.float32, device=device)
@@ -409,28 +476,39 @@ def check_coeff_kernel(cohort, device, reps=10) -> dict:
                             FS)
     weights = TN.disjoint_window_weights(
         starts[None], np.ones((1, len(starts)), np.float32), ws)[0]
-    cs = torch.as_tensor(starts[:WINDOW_CHUNK], device=device)
-    w = torch.as_tensor(weights[:WINDOW_CHUNK], device=device)
-    e, m = (band_spectra(torch.from_numpy(x[0]).to(device), cs, tapers, ws,
-                         lo, hi) for x in cohort)
+    chunks = []
+    for c0 in (0, WINDOW_CHUNK):
+        cs = torch.as_tensor(starts[c0:c0 + WINDOW_CHUNK], device=device)
+        w = torch.as_tensor(weights[c0:c0 + WINDOW_CHUNK], device=device)
+        e, m = (band_spectra(torch.from_numpy(x[0]).to(device), cs, tapers,
+                             ws, lo, hi) for x in cohort)
+        chunks.append((e, m, w))
+    (e, m, w), second = chunks
     got = cuda_coeffs.coeff_pairs(e, m, w)
     ref = cuda_coeffs.coeff_pairs_plain(e, m, w)
     wsum = float(w.sum())
-    errs, excess = {}, {}
-    for name, a, b in zip(("diag", "pr", "pi"), got, ref):
-        _require(bool(torch.isfinite(a).all()), f"B3 {name}: non-finite")
-        d = (a - b).abs() / wsum
-        bound = COEFF_ATOL + COEFF_RTOL * b.abs() / wsum
-        errs[name] = float(d.max())
-        excess[name] = float((d / bound).max())
+    errs, excess = _coeff_excess(got, ref, wsum, "B3")
+    acc = cuda_coeffs.coeff_pairs(*second, out=got)
+    cuda_coeffs.coeff_pairs_plain(*second, out=ref)
+    _require(acc is got, "B3 out= did not return out")
+    wsum2 = wsum + float(second[2].sum())
+    errs2, excess2 = _coeff_excess(acc, ref, wsum2, "B3 accumulate")
     log(json.dumps({"check": "coeff_pairs", "shape": [list(e.shape),
                                                       list(m.shape)],
                     "weight_sum": wsum, "max_abs_err_over_wsum": errs,
                     "max_err_over_tolerance": excess,
+                    "accumulate_weight_sum": wsum2,
+                    "accumulate_max_abs_err_over_wsum": errs2,
+                    "accumulate_max_err_over_tolerance": excess2,
                     "rtol": COEFF_RTOL, "atol": COEFF_ATOL}))
     _require(max(excess.values()) <= 1.0,
              f"B3 disagrees with its plain version: {excess}")
+    _require(max(excess2.values()) <= 1.0,
+             f"B3's accumulate form disagrees with the plain add_: {excess2}")
+    del acc, ref
     ms = cuda_ms(lambda: cuda_coeffs.coeff_pairs(e, m, w), reps)
+    ms_acc = cuda_ms(lambda: cuda_coeffs.coeff_pairs(*second, out=got),
+                     reps)
     plain_ms = cuda_ms(lambda: cuda_coeffs.coeff_pairs_plain(e, m, w), reps)
     # per (window, f, e, m): the denominator and its scale (4), per taper
     # the cross term, its scaling and |y|² into the diagonal (12), per
@@ -441,10 +519,15 @@ def check_coeff_kernel(cohort, device, reps=10) -> dict:
     P2 = K * (K - 1) // 2
     flops = wc * nF * E * M * (4 + 12 * K + 8 * P2)
     nbytes = 8 * wc * K * nF * (E + M) + 4 * wc + 4 * (1 + 2 * P2) * nF * E * M
-    return {"max_abs_err": max(errs.values()) * wsum, "ms": ms,
-            "plain_ms": plain_ms,
-            **roofline(ms, float(flops), float(nbytes)),
-            "library_ms": None, "shape": [wc, K, nF, E, M]}
+    out = {"max_abs_err": max(errs.values()) * wsum,
+           "accumulate_max_abs_err": max(errs2.values()) * wsum2,
+           "ms": ms, "accumulate_ms": ms_acc, "plain_ms": plain_ms,
+           **roofline(ms, float(flops), float(nbytes)),
+           "library_ms": None, "shape": [wc, K, nF, E, M],
+           "ptxas": ptxas_report()}
+    log(json.dumps({"check": "coeff_pairs timing", "card": card_name_and_power(),
+                    **out}))
+    return out
 
 
 def _require_close_observed(got, ref, what) -> None:

@@ -45,6 +45,13 @@ def entry_device(device, *tensors) -> torch.device:
     return dev
 
 
+def not_ported(option: str, item: str) -> NotImplementedError:
+    """The error an entry point raises, before any upload, for an option
+    the port does not have yet; ``item`` names its ROADMAP entry."""
+    return NotImplementedError(
+        f"{option} is not ported to mba_tpu_torch yet (ROADMAP {item})")
+
+
 def synchronize(device: torch.device) -> None:
     """Wait for the card's queued work (no-op on the CPU)."""
     if device.type == "cuda":

@@ -28,9 +28,11 @@ import numpy as np
 import torch
 from scipy.stats import t as _t_dist
 
-from mba_tpu_torch._device import entry_device, synchronize, to_device
-from mba_tpu_torch.ops.cuda_msc import (coherence_ratio, fisher_atanh,
-                                        inverse_fisher_atanh, msc_jackknife)
+from mba_tpu_torch._device import (entry_device, not_ported, synchronize,
+                                   to_device)
+from mba_tpu_torch.ops.cuda_msc import (K_MAX, coherence_ratio,
+                                        fisher_atanh, inverse_fisher_atanh,
+                                        msc_jackknife)
 from mba_tpu_torch.ops.dpss import (cmc_independence_threshold_host,
                                     filtered_tapers)
 from mba_tpu_torch.ops.framing import frame_signal, window_grid
@@ -164,7 +166,9 @@ def multitaper_msc(
     Not in this port yet (each raises ``NotImplementedError``): a
     ``transfer_dtype`` other than float32 (the quantized and float16
     downloads) and ``input_transfer='int16'`` on float input (the host
-    quantizer) — ROADMAP A-list, "unsupported options".
+    quantizer) — ROADMAP A-list, "unsupported options"; and the jackknife
+    on the card with more than 8 tapers (kernel B1's limit; the CPU takes
+    any K).
     """
     if transfer_dtype is not None and \
             np.dtype(transfer_dtype) != np.dtype(np.float32):
@@ -205,6 +209,10 @@ def multitaper_msc(
     K = tapers.shape[0]
     if use_jackknife and K < 2:
         raise ValueError("jackknife requires at least 2 tapers")
+    if use_jackknife and device.type == "cuda" and K > K_MAX:
+        raise not_ported(f"use_jackknife with K={K} tapers on the card "
+                         f"(kernel B1 takes K <= {K_MAX})",
+                         "A.11, unsupported options")
 
     starts, time_centers = window_grid(
         n_samples, window_samples, hop_samples, sampling_freq,

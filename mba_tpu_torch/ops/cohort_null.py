@@ -43,8 +43,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from mba_tpu_torch._device import entry_device, synchronize, to_device
-from mba_tpu_torch.ops.cuda_coeffs import _F32_TINY
+from mba_tpu_torch._device import (entry_device, not_ported, synchronize,
+                                   to_device)
+from mba_tpu_torch.ops.cuda_coeffs import _F32_TINY, K_MAX as COEFF_K_MAX
 from mba_tpu_torch.ops.cuda_null import (feature_rows, null_epilogue,
                                          null_features, null_tile,
                                          null_tile_plain,
@@ -255,11 +256,6 @@ def _window_set(window_starts, window_weights, J: int, n_samples: int,
     return window_starts, np.asarray(window_weights, np.float32)
 
 
-def _not_ported(option: str, item: str):
-    return NotImplementedError(
-        f"{option} is not ported to mba_tpu_torch yet (ROADMAP {item})")
-
-
 def cohort_msc_rotation_null(
         eeg_cohort,
         emg_cohort,
@@ -310,11 +306,13 @@ def cohort_msc_rotation_null(
     ``False`` uploads the whole cohort first, then runs the passes.
 
     Not ported yet (each raises ``NotImplementedError``): ``mesh``,
-    ``compute_dtype`` other than float32, and a ``transfer_dtype`` other
-    than float32 or the ADC-count passthrough.
+    ``compute_dtype`` other than float32, a ``transfer_dtype`` other
+    than float32 or the ADC-count passthrough, and ``coeff_engine=
+    'pallas'`` on the card with more than 8 tapers (the CPU runs the
+    plain pair pass at any K).
     """
     if mesh is not None:
-        raise _not_ported("mesh (surrogates sharded over devices)", "A10")
+        raise not_ported("mesh (surrogates sharded over devices)", "A10")
     if rotation_mode not in ("shared", "per_window"):
         raise ValueError("rotation_mode must be 'shared' or 'per_window', "
                          f"got {rotation_mode!r}")
@@ -324,7 +322,7 @@ def cohort_msc_rotation_null(
                          f"or 'xla', got {coeff_engine!r}")
     if compute_dtype is not None and compute_dtype not in (
             torch.float32, np.float32, "float32"):
-        raise _not_ported(f"compute_dtype={compute_dtype!r}",
+        raise not_ported(f"compute_dtype={compute_dtype!r}",
                           "'Unsupported options'")
     td = np.dtype(transfer_dtype) if transfer_dtype is not None else None
     if td is not None and td != np.dtype(np.float32):
@@ -333,7 +331,7 @@ def cohort_msc_rotation_null(
         passthrough = td in (np.dtype(np.int16), np.dtype(np.int8)) \
             and dtypes == {td}
         if not passthrough:
-            raise _not_ported(f"transfer_dtype={transfer_dtype!r} "
+            raise not_ported(f"transfer_dtype={transfer_dtype!r} "
                               "(host quantized upload)",
                               "'Unsupported options'")
     device = entry_device(device, eeg_cohort, emg_cohort)
@@ -385,6 +383,10 @@ def cohort_msc_rotation_null(
     engine = "gram" if coeff_engine == "auto" else coeff_engine
     if per_window:
         engine = "xla"                # per-window keeps the scan engine
+    if engine == "pallas" and device.type == "cuda" and K > COEFF_K_MAX:
+        raise not_ported(f"coeff_engine='pallas' with K={K} tapers on the "
+                         f"card (kernel B3 takes K <= {COEFF_K_MAX})",
+                         "A.11, unsupported options")
 
     # ---- precompute all-subject rotation coefficients (device-resident) --
     t_pre0 = time.perf_counter()

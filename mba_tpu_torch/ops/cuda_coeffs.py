@@ -14,7 +14,10 @@ below, the chunk body of the JAX package's scan engine
 (``cohort_null.py:190-233``), materialises them.
 
 :func:`coeff_pairs` is the wrapper: CPU tensors run
-:func:`coeff_pairs_plain`, CUDA tensors launch the kernel or raise.
+:func:`coeff_pairs_plain` (any K >= 2, as the JAX package's scan engine),
+CUDA tensors launch the kernel (2 <= K <= K_MAX) or raise.  Given
+``out=(diag, pr, pi)``, both add the chunk's sums to it in place, so a
+caller sums its chunks without allocating or adding per chunk.
 ``coeff_pairs.launches`` counts kernel launches.
 
 Tolerance, kernel against plain: the window sums divided by the chunk's
@@ -60,11 +63,13 @@ def taper_products(eeg_spec: torch.Tensor, emg_spec: torch.Tensor,
 
 
 def coeff_pairs_plain(eeg_spec: torch.Tensor, emg_spec: torch.Tensor,
-                      weights: torch.Tensor):
+                      weights: torch.Tensor, out=None):
     """Plain PyTorch version: ``cw_body`` (``cohort_null.py:217-233``).
 
     Shapes as :func:`taper_products`.  Returns ``(diag (F, N), pr (P2,
-    F, N), pi (P2, F, N))`` float32, summed over the windows.
+    F, N), pi (P2, F, N))`` float32, summed over the windows; with ``out``
+    (three such tensors) adds them to ``out`` in place (``add_``) and
+    returns it.
     """
     yr, yi = taper_products(eeg_spec, emg_spec, weights)
     diag = (yr * yr + yi * yi).sum(dim=(0, 1))
@@ -73,7 +78,11 @@ def coeff_pairs_plain(eeg_spec: torch.Tensor, emg_spec: torch.Tensor,
                       for k, l in zip(ks, ls)])
     pi = torch.stack([(yi[:, k] * yr[:, l] - yr[:, k] * yi[:, l]).sum(dim=0)
                       for k, l in zip(ks, ls)])
-    return diag, pr, pi
+    if out is None:
+        return diag, pr, pi
+    for acc, x in zip(out, (diag, pr, pi)):
+        acc.add_(x)
+    return out
 
 
 def _check(eeg_spec, emg_spec, weights) -> None:
@@ -98,44 +107,78 @@ def _check(eeg_spec, emg_spec, weights) -> None:
     if tuple(weights.shape) != (eeg_spec.shape[0],):
         raise ValueError(f"weights must be ({eeg_spec.shape[0]},), got "
                          f"{tuple(weights.shape)}")
-    K = eeg_spec.shape[1]
-    if not 2 <= K <= K_MAX:
-        raise ValueError(f"kernel supports 2 <= K <= {K_MAX} tapers, got {K}")
+    if eeg_spec.shape[1] < 2:
+        raise ValueError(f"the pair pass needs K >= 2 tapers, got "
+                         f"{eeg_spec.shape[1]}")
+
+
+def _out_shapes(eeg_spec, emg_spec):
+    _, K, nF, nE = eeg_spec.shape
+    N = nE * emg_spec.shape[-1]
+    P2 = K * (K - 1) // 2
+    return (nF, N), (P2, nF, N), (P2, nF, N)
+
+
+def _check_out(out, eeg_spec, emg_spec) -> None:
+    if len(out) != 3:
+        raise ValueError(f"out must be (diag, pr, pi), got {len(out)} "
+                         "tensors")
+    for name, x, shape in zip(("diag", "pr", "pi"), out,
+                              _out_shapes(eeg_spec, emg_spec)):
+        if x.dtype != torch.float32:
+            raise TypeError(f"out {name} must be float32, got {x.dtype}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"out {name} must be {shape}, got "
+                             f"{tuple(x.shape)}")
+        if x.device != eeg_spec.device:
+            raise ValueError(f"out {name} lies on {x.device}, eeg_spec on "
+                             f"{eeg_spec.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"out {name} must be contiguous")
 
 
 def coeff_pairs(eeg_spec: torch.Tensor, emg_spec: torch.Tensor,
-                weights: torch.Tensor):
+                weights: torch.Tensor, out=None):
     """Window sums of the normalised taper products (module docstring).
 
     eeg_spec (wc, K, F, E) / emg_spec (wc, K, F, M) complex64, contiguous;
     weights (wc,) float32.  Returns ``(diag (F, N), pr (P2, F, N), pi
-    (P2, F, N))`` float32, N = E·M.
+    (P2, F, N))`` float32, N = E·M.  ``out``: three such tensors on the
+    spectra's device, contiguous, to which the sums are added in place
+    (each element once, ``out + sum``) and which are returned: a caller
+    sums its chunks without an extra pass.  Any K >= 2 on the CPU; the
+    kernel takes K <= K_MAX.
     """
     _check(eeg_spec, emg_spec, weights)
+    if out is not None:
+        _check_out(out, eeg_spec, emg_spec)
     if eeg_spec.device.type == "cpu":
-        return coeff_pairs_plain(eeg_spec, emg_spec, weights)
+        return coeff_pairs_plain(eeg_spec, emg_spec, weights, out=out)
     if eeg_spec.device.type != "cuda":
         raise ValueError(f"unsupported device {eeg_spec.device}")
     wc, K, nF, nE = eeg_spec.shape
     nM = emg_spec.shape[-1]
-    P2 = K * (K - 1) // 2
-    dev = eeg_spec.device
-    diag = torch.empty((nF, nE * nM), dtype=torch.float32, device=dev)
-    pr = torch.empty((P2, nF, nE * nM), dtype=torch.float32, device=dev)
-    pi = torch.empty_like(pr)
+    if K > K_MAX:
+        raise ValueError(f"kernel supports 2 <= K <= {K_MAX} tapers, got {K}")
+    accumulate = out is not None
+    if out is None:
+        out = tuple(torch.empty(s, dtype=torch.float32,
+                                device=eeg_spec.device)
+                    for s in _out_shapes(eeg_spec, emg_spec))
     if nF * nE * nM == 0:
-        return diag, pr, pi
+        return out
+    diag, pr, pi = out
     lib = _build.load_library()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(eeg_spec.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.mba_coeff_pairs(
             torch.view_as_real(eeg_spec).data_ptr(),
             torch.view_as_real(emg_spec).data_ptr(), weights.data_ptr(),
             diag.data_ptr(), pr.data_ptr(), pi.data_ptr(),
-            wc, K, nF, nE, nM, stream)
+            wc, K, nF, nE, nM, int(accumulate), stream)
     _build.check_launch(lib, code, "mba_coeff_pairs")
     coeff_pairs.launches += 1
-    return diag, pr, pi
+    return out
 
 
 coeff_pairs.launches = 0

@@ -16,7 +16,9 @@ taper spectra then go to the pair pass:
 - ``per_window=True``: the same products with the window axis kept
   (``cw_body_per_window``, :235-256), for the per-window null.
 
-The chunk sums add up over the chunks, in chunk order.  The JAX
+The chunk sums add up over the chunks, in chunk order: the first chunk's
+sums are allocated by the pair pass and every later chunk adds into them
+in place (``out=``), with no separate ``add_`` pass.  The JAX
 package's MXU rFFT (``ops/fftmm.py``) and the Pallas path's 128-lane
 frequency padding and final transposes are TPU layout work: cuFFT takes
 the former's place and the kernel writes frequency-major directly.
@@ -98,9 +100,7 @@ def rotation_coeffs_subject(eeg: torch.Tensor, emg: torch.Tensor,
         if per_window:
             parts.append(per_window_pairs(Es, Ms, wts))
             continue
-        out = pairs(Es, Ms, wts)
-        total = out if total is None else tuple(
-            acc.add_(x) for acc, x in zip(total, out))
+        total = pairs(Es, Ms, wts, out=total)
     wsum = torch.clamp_min(weights.sum(), _F32_TINY)
     if per_window:
         diag_w, pr_w, pi_w = (torch.cat(x) for x in zip(*parts))

@@ -502,7 +502,17 @@ def _coeff_spectra(seed, wc, K, nF, nE, nM, device):
     (3, 7, 5, 3, 5),          # small M: 8 EMG lanes, 32 EEG rows a block
     (5, 32, 17, 64, 64),      # the main path's tile shape
     (5, 9, 3, 5, 70),         # M > 64: two EMG tiles, the second ragged
-    (8, 6, 4, 11, 37),        # K = 8: 57 sums a thread
+    (8, 6, 4, 11, 37),        # K = 8: 57 sums a cell
+    (5, 1, 4, 64, 64),        # one window: one group, mostly empty
+    (5, 7, 3, 11, 37),        # wc below the window group; E and M ragged
+    (5, 33, 5, 5, 70),        # a group and one window; M over one tile
+    (2, 9, 6, 11, 37),        # K = 2: one pair
+    (8, 33, 3, 5, 70),        # K = 8 at the ragged edges
+    (4, 7, 4, 1, 1),          # one cell a frequency
+    (5, 32, 2, 7, 9),         # odd E and M: 8-byte copies
+    (6, 10, 3, 9, 20),        # K = 6
+    (7, 5, 3, 6, 12),         # K = 7, the runtime (narrow) tile
+    (8, 9, 2, 3, 10),         # K = 8, the runtime (narrow) tile
 ])
 def test_coeff_kernel_matches_plain_on_card(cuda, K, wc, nF, nE, nM):
     """Window sums over the chunk's weight sum within rtol 2e-5 / atol
@@ -518,6 +528,31 @@ def test_coeff_kernel_matches_plain_on_card(cuda, K, wc, nF, nE, nM):
     wsum = float(w.sum())
     for a, b in zip(got, ref):
         assert tuple(a.shape) == tuple(b.shape)
+        assert bool(torch.isfinite(a).all())
+        np.testing.assert_allclose(a.cpu().numpy() / wsum,
+                                   b.cpu().numpy() / wsum,
+                                   rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,nE,nM", [(5, 64, 64), (8, 11, 37), (3, 5, 70)])
+def test_coeff_kernel_accumulates_two_chunks_on_card(cuda, K, nE, nM):
+    """``out=`` adds each chunk's sums in the kernel: two chunks against
+    the plain sums of each added in turn, at the tolerance above over the
+    two chunks' weight sum; ``out`` comes back itself."""
+    e, m, w = _coeff_spectra(40 + K, 45, K, 4, nE, nM, cuda)
+    chunks = [(e[a:b].contiguous(), m[a:b].contiguous(), w[a:b].contiguous())
+              for a, b in ((0, 32), (32, 45))]
+    ref = cuda_coeffs.coeff_pairs_plain(*chunks[0])
+    cuda_coeffs.coeff_pairs_plain(*chunks[1], out=ref)
+    before = cuda_coeffs.coeff_pairs.launches
+    out = cuda_coeffs.coeff_pairs(*chunks[0])
+    got = cuda_coeffs.coeff_pairs(*chunks[1], out=out)
+    torch.cuda.synchronize()
+    assert got is out
+    assert cuda_coeffs.coeff_pairs.launches == before + 2
+    wsum = float(w.sum())
+    for a, b in zip(got, ref):
         assert bool(torch.isfinite(a).all())
         np.testing.assert_allclose(a.cpu().numpy() / wsum,
                                    b.cpu().numpy() / wsum,

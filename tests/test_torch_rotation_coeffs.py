@@ -19,6 +19,8 @@ import jax.numpy as jnp
 from mba_tpu.ops import cohort_null as CN
 from mba_tpu.ops.dpss import filtered_tapers
 
+from mba_tpu_torch.ops import coherence as TC
+from mba_tpu_torch.ops import cohort_null as TN
 from mba_tpu_torch.ops import cuda_coeffs
 from mba_tpu_torch.ops.rotation_coeffs import rotation_coeffs_subject
 
@@ -43,9 +45,12 @@ def _problem(seed=0, n_sec=8.0, fs=256.0, E=3, M=4):
 
 
 def _run_both(eeg, emg, engine, ws=256, W=10, chunk=4, band_lo=0,
-              band_hi=None, weights=None, per_window=False):
-    """JAX body and the port's on the same numpy inputs, as numpy."""
-    tapers = np.asarray(filtered_tapers(ws, 3, 0.9), np.float32)
+              band_hi=None, weights=None, per_window=False, nw=3,
+              jax_engine=None):
+    """JAX body and the port's on the same numpy inputs, as numpy; the
+    JAX body runs ``jax_engine`` (default: ``engine``)."""
+    jax_engine = jax_engine or engine
+    tapers = np.asarray(filtered_tapers(ws, nw, 0.9), np.float32)
     band_hi = ws // 2 + 1 if band_hi is None else band_hi
     starts = np.linspace(0, eeg.shape[0] - ws, W).astype(np.int32)
     w = np.ones(W, np.float32) if weights is None else weights
@@ -53,8 +58,8 @@ def _run_both(eeg, emg, engine, ws=256, W=10, chunk=4, band_lo=0,
         jnp.asarray(eeg), jnp.asarray(emg), jnp.asarray(starts),
         jnp.asarray(w), jnp.asarray(tapers), window_samples=ws,
         band_lo=band_lo, band_hi=band_hi, window_chunk=chunk,
-        per_window=per_window, use_pallas=engine == "pallas",
-        pallas_interpret=engine == "pallas")
+        per_window=per_window, use_pallas=jax_engine == "pallas",
+        pallas_interpret=jax_engine == "pallas")
     b1, c1 = rotation_coeffs_subject(
         torch.from_numpy(eeg), torch.from_numpy(emg),
         torch.from_numpy(starts.astype(np.int64)), torch.from_numpy(w),
@@ -92,6 +97,49 @@ def test_pallas_engine_matches_jax_pallas_interpret(case):
         assert b0.shape[0] == 95
     np.testing.assert_allclose(b1, b0, rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(c1, c0, rtol=RTOL, atol=ATOL)
+
+
+def test_pallas_engine_takes_any_taper_count_on_cpu():
+    """nw = 5 gives K = 9 tapers, more than kernel B3 takes (K_MAX = 8):
+    CPU tensors run the plain pair pass at any K, as the JAX package's
+    ``'pallas'`` engine becomes its scan engine off a TPU
+    (``mba_tpu/ops/cohort_null.py:1168-1173``)."""
+    K = filtered_tapers(256, 5, 0.9).shape[0]
+    assert K == 9 > cuda_coeffs.K_MAX
+    eeg, emg, kw = _case_inputs("weights_and_padding")
+    b0, c0, b1, c1 = _run_both(eeg, emg, "pallas", nw=5, jax_engine="xla",
+                               **kw)
+    assert c1.shape == c0.shape and c1.shape[-1] == K * (K - 1)
+    np.testing.assert_allclose(b1, b0, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(c1, c0, rtol=RTOL, atol=ATOL)
+
+
+def _fake_card(monkeypatch):
+    """A CPU-only process that believes it has a card, and fails loudly
+    if anything is uploaded."""
+    def no_upload(*args, **kwargs):
+        raise AssertionError("uploaded before the entry-point check")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(TN, "to_device", no_upload)
+    monkeypatch.setattr(TC, "to_device", no_upload)
+
+
+@pytest.mark.parametrize("entry", ["rotation_null_pallas", "multitaper_msc"])
+def test_more_than_8_tapers_on_the_card_raise_at_the_entry_point(
+        monkeypatch, entry):
+    """K = 9 on a CUDA device: kernels B3 and B1 take K <= 8, so the entry
+    point raises ``NotImplementedError`` naming ROADMAP A.11 before any
+    upload."""
+    _fake_card(monkeypatch)
+    eeg, emg = _problem(7)
+    with pytest.raises(NotImplementedError, match="A.11"):
+        if entry == "multitaper_msc":
+            TC.multitaper_msc(eeg, emg, 256.0, nw=5, window_length_sec=1.0,
+                              device="cuda")
+        else:
+            TN.cohort_msc_rotation_null(
+                eeg[None], emg[None], 256.0, nw=5, window_length_sec=1.0,
+                coeff_engine="pallas", n_surrogates=8, device="cuda")
 
 
 def test_pallas_engine_observed_statistic_matches_jax():
@@ -210,28 +258,58 @@ def test_zero_weight_window_adds_nothing_but_carries_nan():
     assert torch.isfinite(diag[2]).all()
 
 
+def test_out_sums_chunks_as_separate_calls_and_add():
+    """``out=`` over two chunks gives, bit for bit, what the separate calls
+    and ``add_`` gave before (the wrapper on CPU tensors and the plain
+    version alike), and returns ``out`` itself."""
+    e, m, w = _random_spectra(6, wc=7)
+    chunks = [(e[a:b].contiguous(), m[a:b].contiguous(), w[a:b].contiguous())
+              for a, b in ((0, 4), (4, 7))]
+    for fn in (cuda_coeffs.coeff_pairs, cuda_coeffs.coeff_pairs_plain):
+        ref = fn(*chunks[0])
+        for acc, x in zip(ref, fn(*chunks[1])):
+            acc.add_(x)
+        out = fn(*chunks[0])
+        got = fn(*chunks[1], out=out)
+        assert got is out
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+        zeros = tuple(torch.zeros_like(x) for x in ref)
+        for c in chunks:
+            fn(*c, out=zeros)
+        for a, b in zip(zeros, ref):
+            assert torch.equal(a, b)
+
+
 def _bad_coeff_inputs():
     e, m, w = _random_spectra(3, wc=3, K=3, nF=4, nE=2, nM=3)
-    e9, m9, _ = _random_spectra(4, wc=3, K=9, nF=4, nE=2, nM=3)
     e1, m1, _ = _random_spectra(5, wc=3, K=1, nF=4, nE=2, nM=3)
+    out = cuda_coeffs.coeff_pairs_plain(e, m, w)
+    diag, pr, pi = out
     return [
-        (e.to(torch.complex128), m, w, TypeError),
-        (e, m, w.double(), TypeError),
-        (e.real.contiguous(), m, w, TypeError),
-        (e.transpose(2, 3).contiguous().transpose(2, 3), m, w,
+        (e.to(torch.complex128), m, w, None, TypeError),
+        (e, m, w.double(), None, TypeError),
+        (e.real.contiguous(), m, w, None, TypeError),
+        (e.transpose(2, 3).contiguous().transpose(2, 3), m, w, None,
          ValueError),                                    # not contiguous
-        (e[:, :, :3].contiguous(), m, w, ValueError),    # (wc, K, F) differ
-        (e, m, w[:2].contiguous(), ValueError),          # weights shape
-        (e[0], m[0], w, ValueError),                     # not 4-D
-        (e.to("meta"), m.to("meta"), w.to("meta"), ValueError),  # no device
-        (e, m.to("meta"), w, ValueError),                # devices differ
-        (e9, m9, w, ValueError),                         # K > 8
-        (e1, m1, w, ValueError),                         # K < 2
+        (e[:, :, :3].contiguous(), m, w, None, ValueError),  # (wc, K, F)
+        (e, m, w[:2].contiguous(), None, ValueError),    # weights shape
+        (e[0], m[0], w, None, ValueError),               # not 4-D
+        (e.to("meta"), m.to("meta"), w.to("meta"), None,
+         ValueError),                                    # no device
+        (e, m.to("meta"), w, None, ValueError),          # devices differ
+        (e, m, w, (diag, pr[:2].contiguous(), pi), ValueError),  # out shape
+        (e1, m1, w, None, ValueError),                   # K < 2
+        (e, m, w, (diag.double(), pr, pi), TypeError),   # out dtype
+        (e, m, w, (diag, pr.to("meta"), pi), ValueError),    # out device
+        (e, m, w, (diag, pr, pi.transpose(1, 2).contiguous().transpose(1, 2)),
+         ValueError),                                    # out not contiguous
+        (e, m, w, (diag, pr), ValueError),               # not three tensors
     ]
 
 
-@pytest.mark.parametrize("case", range(11))
+@pytest.mark.parametrize("case", range(15))
 def test_coeff_wrapper_refuses_bad_input(case):
-    e, m, w, exc = _bad_coeff_inputs()[case]
+    e, m, w, out, exc = _bad_coeff_inputs()[case]
     with pytest.raises(exc):
-        cuda_coeffs.coeff_pairs(e, m, w)
+        cuda_coeffs.coeff_pairs(e, m, w, out=out)
