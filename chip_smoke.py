@@ -43,25 +43,48 @@ result):
    band); (h) B1 against its plain version at that narrow montage,
    11×64; (i) bench.py's config 4, the single-pair 10 000-surrogate
    phase null, uncoupled (p_fwe ≥ 0.01) and coupled (p_fwe < 0.01);
-8. one JSON line describing the kernels: per kernel its launches on its
+8. the preprocessing stage: (j) the cascade (filters, average
+   reference, amplitude annotation, an 8-component ICA with its labels,
+   the Laplacian, db4 denoising) and the workflow on 16 EEG channels ×
+   60 s at 512 Hz and on 16 EMG channels, on the card against the CPU:
+   each stage, the bad channels and annotations, the ICA sources (up to
+   sign and order), the labels and the output; (k) the study-scale
+   EEG of (g), 64 ch × 1 698 s at 2048 Hz, in volts, with a planted
+   50-Hz line and harmonics, one bad channel and an ECG-like component,
+   through the workflow's defaults (25 ICA components, every stage kept
+   on the card), then db4 denoising of the output, then one EMG grid
+   through its default cascade: the line must drop 100×, the bad
+   channel and the ECG component ('heart beat', excluded) be caught,
+   the ICA converge; each stage timed, the ICA per epoch;
+9. one JSON line describing the kernels: per kernel its launches on its
    main path (and on every path, ``launches_by_path``), its error
    against the plain version, CUDA-event times of the kernel and the
    plain version, its bound (the larger of the bytes it must move over
    3.35 TB/s and the operations it must do over 67 TFLOP/s, float32 on
    the CUDA cores, counted from this run's shapes), the share of that
    bound it reaches, and, for B2, the time of ``torch.bmm`` of the same
-   product (TF32 off) as ``library_ms``; then the result line
+   product (TF32 off) as ``library_ms``; the threefry draw (port-only,
+   it replaces no TPU kernel) is held bit for bit to its plain version
+   before the main paths run; then the result line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
+
+Every null draws its phases with the threefry kernel from the JAX
+package's keys, so a seed gives the same phases on the card and the CPU:
+the card-against-CPU checks of (4) and (f) run both at one seed with
+nothing replaced.
 """
 from __future__ import annotations
 
 import datetime
 import json
+import math
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -70,14 +93,21 @@ import mba_tpu_torch
 from mba_tpu_torch import _build
 from mba_tpu_torch.ops import cohort_null as TN
 from mba_tpu_torch.ops import coherence as TC
-from mba_tpu_torch.ops import cuda_coeffs, cuda_msc, cuda_null
+from mba_tpu_torch.ops import cuda_coeffs, cuda_msc, cuda_null, cuda_prng
+from mba_tpu_torch.ops import ica as TI
+from mba_tpu_torch.ops import prng
 from mba_tpu_torch.ops import spectral as TS
 from mba_tpu_torch.ops import surrogate as TSu
+from mba_tpu_torch.ops import wavelet as TW
 from mba_tpu_torch.ops.dpss import filtered_tapers
 from mba_tpu_torch.ops.framing import frame_signal, window_grid
 from mba_tpu_torch.ops.rotation_coeffs import band_spectra
+from mba_tpu_torch.pipeline import preprocessing as TP
 from mba_tpu_torch.pipeline import signal_features as TF
 from mba_tpu_torch.pipeline.cbpa import CMC_EEG_CHANNEL_SUBSET
+from mba_tpu_torch.workflows import preprocessing_workflow as TPW
+
+REPO = Path(__file__).resolve().parent
 
 FS = 2048.0
 SECONDS = 120.0
@@ -123,6 +153,31 @@ QUANTILE_CELLS = 1e-3   # cells whose null quantile may move by one bin
 # operations and its bytes over these
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+# the threefry checks: the null's phase draw (J, S, K, F) at the main
+# path's chunk, an odd flat length, and split(key, 1000)
+PRNG_NULL_SHAPE = (N_SUBJECTS, SURROGATE_CHUNK, 5, 175)
+PRNG_ODD_LEN = 1_000_003
+PRNG_SPLIT = 1000
+PRNG_KEYS, PRNG_KEYS_SHAPE = 8, (2, 12289)   # the full-FFT null's chunk
+# integer operations of one threefry draw: 20 rounds of add, rotate and
+# xor, 12 key injections, and the float conversion (shift, or, subtract,
+# fma, max) — counted at the float32 rate of PEAK_FP32_FLOPS
+THREEFRY_OPS = 20 * 3 + 12 + 5
+# the preprocessing stage: (j) small, on the card against the CPU; (k)
+# the study recording's EEG and one EMG grid in volts (10 µV of noise a
+# unit), with brain-like rhythms (``rhythm_sources``), a planted 50-Hz
+# line (4 harmonics), an ECG-like spike train (40 µV peak through a
+# random topography) and ±2 mV 20-Hz bursts on one channel, 0.4 s every
+# 5 s (8 % of the time, over the 5 % rule)
+PRE_FS, PRE_SECONDS, PRE_CHANNELS, PRE_ICA = 512.0, 60.0, 16, 8
+PRE_VOLTS = 1e-5
+STUDY_RHYTHMS = 22      # with the ECG and the bursts, 24 of 25 components
+LINE_AMPS = (2e-5, 1e-5, 5e-6, 2.5e-6)
+ECG_VOLTS, BURST_VOLTS, BAD_CHANNEL = 4e-5, 2e-3, 3
+PRE_FILTER_RTOL = 1e-5   # × max|x|: the filter stages (tests/test_torch_
+PRE_STAGE_RTOL = 1e-4    # preprocessing.py); the stages after the ICA
+ICA_CORR_MIN = 0.999     # sources up to sign and order
+LINE_DROP = 100.0        # line power at 50 Hz, input over output
 QUEUE_AHEAD_CYCLES = 50_000_000   # ~25 ms of spin at the H100's ~2 GHz
 
 
@@ -338,7 +393,7 @@ def null_check_state(device, K=5, seed=0):
     base = 0.1 + 0.2 * torch.rand((nF, N), generator=g, device=device)
     obs = base - 0.05 + 0.25 * torch.rand((nF, N), generator=g,
                                           device=device)
-    return TN.null_state(base, coef, obs), g, K
+    return TN.null_state(base, coef, obs), prng.prng_key(seed), K
 
 
 def check_null_kernel(device, reps=10) -> dict:
@@ -346,13 +401,14 @@ def check_null_kernel(device, reps=10) -> dict:
     and S = 13 (padded rows must not count).  max_stat within NULL_TOL;
     counts equal but in at most TIE_FRACTION of the cells, by one, where
     float32 accumulation order moves a stat across obs."""
-    state, g, K = null_check_state(device)
+    state, key, K = null_check_state(device)
     J = state.n_subjects
     nF = state.coefT.shape[0]
     out = {}
     for S in (SURROGATE_CHUNK, 13):
+        key, sub = prng.split(key)
         G = cuda_null.null_features(TN.phase_features(
-            TN.draw_phases(g, J, S, K, nF)))
+            TN.draw_phases(sub, J, S, K, nF, device)))
         ms, cnt = cuda_null.null_tile(G, state.coefT, state.base_flat,
                                       state.observed_flat, J)
         ms_p, cnt_p = cuda_null.null_tile_plain(
@@ -401,6 +457,59 @@ def bmm_ms(G, coefT, reps) -> float:
     del a, out
     torch.cuda.empty_cache()
     return ms
+
+
+def check_prng_kernel(device, reps=20) -> dict:
+    """The threefry draw against its plain version, bit for bit: the
+    null's phase draw (PRNG_NULL_SHAPE, uniform on [0, 2π)), raw bits at
+    an odd flat length, split(key, PRNG_SPLIT) as both words (the keys
+    themselves), and one draw for each of PRNG_KEYS keys in one launch.
+    Times the null's draw, kernel and plain version
+    (the plain version's int64 ops on the card); its bound is the larger
+    of the float32 output written over 3.35 TB/s and THREEFRY_OPS a draw
+    over PEAK_FP32_FLOPS.  Port-only: no TPU kernel draws these bits."""
+    key = prng.split(prng.prng_key(2024))[1]
+    checks, err = {}, 0.0
+    for kind, shape, bounds in (("uniform", PRNG_NULL_SHAPE, (0.0, 2 * np.pi)),
+                                ("bits", (PRNG_ODD_LEN,), (0.0, 1.0)),
+                                ("pairs", (PRNG_SPLIT,), (0.0, 1.0))):
+        got = cuda_prng.threefry_draw(key, shape, kind, device, *bounds)
+        ref = cuda_prng.threefry_draw(key, shape, kind, "cpu", *bounds)
+        _require(got.device.type == "cuda" and got.dtype == ref.dtype
+                 and got.shape == ref.shape, f"threefry {kind}: "
+                 f"{got.device} {got.dtype} {tuple(got.shape)}")
+        same = bool(torch.equal(got.cpu(), ref))
+        checks[kind] = {"shape": list(shape), "bitwise_equal": same}
+        _require(same, f"threefry {kind} {shape}: the kernel's bits differ "
+                 "from the plain version's")
+        if kind == "uniform":
+            err = float((got.cpu() - ref).abs().max())
+        if kind == "pairs":
+            _require(np.array_equal(got.cpu().numpy().astype(np.uint32),
+                                    prng.split(key, PRNG_SPLIT)),
+                     "threefry pairs are not split's keys")
+    # the full-FFT null's per-surrogate draws, one launch for a chunk
+    keys = prng.split(key, PRNG_KEYS)
+    got = cuda_prng.uniform_keys(keys, PRNG_KEYS_SHAPE, 0.0, 2 * np.pi,
+                                 device)
+    same = bool(torch.equal(got.cpu(), cuda_prng.uniform_keys(
+        keys, PRNG_KEYS_SHAPE, 0.0, 2 * np.pi, "cpu")))
+    checks["keys"] = {"shape": [PRNG_KEYS, *PRNG_KEYS_SHAPE],
+                      "bitwise_equal": same}
+    _require(same, "threefry many keys: the kernel's bits differ from the "
+             "plain version's")
+    ms = cuda_ms(lambda: cuda_prng.uniform(key, PRNG_NULL_SHAPE, 0.0,
+                                           2 * np.pi, device), reps)
+    plain_ms = cuda_ms(lambda: prng.uniform(key, PRNG_NULL_SHAPE, 0.0,
+                                            2 * np.pi, device), 3)
+    n = math.prod(PRNG_NULL_SHAPE)
+    out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           **roofline(ms, float(THREEFRY_OPS * n), 4.0 * n),
+           "library_ms": None, "shape": list(PRNG_NULL_SHAPE),
+           "checks": checks}
+    log(json.dumps({"check": "threefry", "card": card_name_and_power(),
+                    **out}))
+    return out
 
 
 def ptxas_report() -> dict:
@@ -569,12 +678,16 @@ def check_small_against_cpu(device) -> None:
                                           **extra)
         ref = TN.cohort_msc_rotation_null(ce, cm, FS, device="cpu", **kw,
                                           **extra)
-        _require_close_observed(
-            got["observed"], ref["observed"],
-            f"rotation null {extra or 'gram'} small, card vs cpu: observed")
+        what = f"rotation null {extra or 'gram'} small, card vs cpu"
+        _require_close_observed(got["observed"], ref["observed"],
+                                f"{what}: observed")
         _require(got["max_stat"].shape == (1000,)
                  and bool(np.isfinite(got["max_stat"]).all()),
                  f"small null {extra}: bad max_stat")
+        # one seed, so the same phases: the surrogates agree as the
+        # observed maps do
+        _require_close_observed(got["max_stat"], ref["max_stat"],
+                                f"{what}: max_stat at one seed")
     kw_fft = dict(nw=NW, window_length_sec=WINDOW_SEC, overlap_frac=OVERLAP,
                   band=BAND, n_surrogates=16)
     got = TN.cohort_msc_fft_null(ce, cm, FS, device=device, **kw_fft)
@@ -583,6 +696,9 @@ def check_small_against_cpu(device) -> None:
                             "fft null small, card vs cpu: observed")
     _require(bool(np.isfinite(got["max_stat"]).all()),
              "small fft null: bad max_stat")
+    _require_close_observed(got["max_stat"], ref["max_stat"],
+                            "fft null small, card vs cpu: max_stat at one "
+                            "seed")
 
 
 def run_cmc(eeg, emg, device) -> dict:
@@ -666,18 +782,6 @@ def run_fft_null(cohort, device) -> dict:
             "fft_flop_budget_cuda": TN.FFT_FLOP_BUDGET["cuda"]}
 
 
-_DRAW_PHASES = TSu.draw_chunk_phases
-
-
-def _cpu_phase_draw(seed):
-    """A stand-in for ``surrogate.draw_chunk_phases`` that draws each
-    chunk's phases on the CPU from one fresh generator, so the card and
-    the CPU null get the same phases."""
-    gen = torch.Generator().manual_seed(seed)
-    return lambda _gen, s, f, m, device: _DRAW_PHASES(gen, s, f, m,
-                                                      "cpu").to(device)
-
-
 def _require_close(what, got, ref, rtol, atol, equal_nan=False) -> None:
     """|got − ref| ≤ atol + rtol·|ref| everywhere (NaN where ``ref`` is
     NaN, with ``equal_nan``); logs the largest difference."""
@@ -712,7 +816,7 @@ def check_features_small_against_cpu(device) -> None:
     amplitude spectrum, the band aggregates of the card's spectrogram
     against the host path (NaN bins included), the task-wise CMC with a
     window mask in the fused and the threshold mode, and the phase null
-    with the same phases injected on both."""
+    at one seed, so with the same phases on both."""
     eeg, emg = make_signals(2, 8, 8, 6.0)
     for log_scale in (False, True):
         kw = dict(nw=NW, window_length_sec=PSD_WINDOW_SEC,
@@ -773,13 +877,8 @@ def check_features_small_against_cpu(device) -> None:
     pe, pm = make_signals(3, 2, 2, 8.0)
     kw = dict(window_length_sec=WINDOW_SEC, n_surrogates=200,
               surrogate_chunk=64, band=BAND)
-    res = []
-    for dev in (device, "cpu"):
-        TSu.draw_chunk_phases = _cpu_phase_draw(5)
-        res.append(TSu.msc_phase_randomized_null(pe, pm, FS, device=dev,
-                                                 **kw))
-    TSu.draw_chunk_phases = _DRAW_PHASES
-    got, ref = res
+    got, ref = (TSu.msc_phase_randomized_null(pe, pm, FS, device=dev, seed=5,
+                                              **kw) for dev in (device, "cpu"))
     _require_close("phase null small, card vs cpu: observed",
                    got["observed"], ref["observed"], 0.0, MSC_ATOL)
     _require_close("phase null small, card vs cpu: max_stat",
@@ -985,17 +1084,289 @@ def run_phase_null(device) -> dict:
     return out
 
 
+def ecg_train(n, fs, rng) -> np.ndarray:
+    """Unit-peak QRS spikes (σ 12 ms) with a T wave, ~70 bpm with ±3 %
+    beat-to-beat jitter: (n,) float32."""
+    k = np.arange(int(0.6 * fs))
+    beat_shape = (np.exp(-0.5 * ((k - 0.05 * fs) / (0.012 * fs)) ** 2)
+                  + 0.15 * np.exp(-0.5 * ((k - 0.3 * fs) / (0.04 * fs)) ** 2)
+                  ).astype(np.float32)
+    x = np.zeros(n, np.float32)
+    beat = rng.uniform(0.0, 0.8) * fs
+    while beat + len(k) < n:
+        x[int(beat):int(beat) + len(k)] += beat_shape
+        beat += fs * 60.0 / 70.0 * rng.uniform(0.97, 1.03)
+    return x
+
+
+def plant_artifacts(x, fs, seed, scale=1.0) -> np.ndarray:
+    """In place on ``x`` (n, C) float32 in volts: the 50-Hz line and its
+    harmonics (LINE_AMPS × ``scale``, a gain of 1 ± 0.2 a channel), the
+    ECG train through a random topography (ECG_VOLTS × ``scale``), and
+    BURST_VOLTS 20-Hz bursts on BAD_CHANNEL, 0.4 s every 5 s.  Returns
+    the ECG train."""
+    rng = np.random.default_rng(seed)
+    n, C = x.shape
+    t = np.arange(n) / fs
+    line = np.zeros(n)
+    for h, amp in enumerate(LINE_AMPS, 1):
+        line += scale * amp * np.sin(2 * np.pi * 50.0 * h * t
+                             + rng.uniform(0, 2 * np.pi))
+    gains = (1 + 0.2 * rng.standard_normal(C)).astype(np.float32)
+    x += line.astype(np.float32)[:, None] * gains
+    ecg = ecg_train(n, fs, rng)
+    topo = rng.uniform(-1.0, 1.0, C).astype(np.float32)
+    x += ecg[:, None] * (np.float32(scale * ECG_VOLTS) * topo)
+    width, period = int(0.4 * fs), int(5 * fs)
+    burst = (BURST_VOLTS * np.sign(np.sin(
+        2 * np.pi * 20 * np.arange(width) / fs))).astype(np.float32)
+    for s0 in range(0, n - width, period):
+        x[s0:s0 + width, BAD_CHANNEL] += burst
+    return ecg
+
+
+def line_power(x, fs, device, channels=4) -> float:
+    """Power in 49.9-50.1 Hz of the last ``channels`` columns of ``x``
+    (numpy or a tensor; away from BAD_CHANNEL and its neighbours), from
+    one rFFT on the card."""
+    cols = torch.as_tensor(x[:, -channels:], device=device).to(torch.float64)
+    spec = torch.fft.rfft(cols, dim=0)
+    f = np.fft.rfftfreq(cols.shape[0], 1 / fs)
+    band = torch.as_tensor((f > 49.9) & (f < 50.1), device=device)
+    return float((spec[band].abs() ** 2).sum())
+
+
+def _matched_sources(a, b):
+    """|corr| of each column of ``a`` with its best match in ``b``, and
+    that match's index."""
+    k = a.shape[1]
+    c = np.abs(np.corrcoef(a.T, b.T)[:k, k:])
+    return c.max(axis=1), c.argmax(axis=1)
+
+
+def rhythm_sources(n, fs, rng, n_sources, n_channels) -> np.ndarray:
+    """Brain-like rhythms, (n, n_channels) float32 volts: ``n_sources``
+    sinusoids at frequencies spread over 4-45 Hz, 20 µV each, switched on
+    for ~40 % of the time at its own slow rate, through random
+    topographies.  Planted with the ECG and the bursts, they fill the
+    leading ICA components with non-Gaussian sources, so the ICA's
+    sources are defined up to sign and order: Gaussian noise components
+    are defined only up to a rotation among themselves, which rounding
+    turns, and with them in the majority extended Infomax at the study's
+    block of 1 076 samples spread a 40 µV ECG over every component, on
+    the CPU and the card alike."""
+    t = np.arange(n) / fs
+    freqs = np.linspace(4.0, 45.0, n_sources) + rng.uniform(-0.5, 0.5,
+                                                            n_sources)
+    src = np.empty((n, n_sources), np.float32)
+    for i, f in enumerate(freqs):
+        on = np.sin(2 * np.pi * rng.uniform(0.05, 0.3) * t
+                    + rng.uniform(0, 2 * np.pi)) > 0.3
+        src[:, i] = on * np.sin(2 * np.pi * f * t + rng.uniform(0, 2 * np.pi))
+    topo = rng.uniform(-1.0, 1.0, (n_sources, n_channels)).astype(np.float32)
+    return src @ (np.float32(2e-5) * topo)
+
+
+STAGES = (("np_filtered_data", PRE_FILTER_RTOL),
+          ("np_referenced_data", PRE_FILTER_RTOL),
+          ("np_artefact_free_data", PRE_STAGE_RTOL),
+          ("np_spatially_filtered_data", PRE_STAGE_RTOL),
+          ("np_output_data", PRE_STAGE_RTOL))
+
+
+def check_preprocessing_small_against_cpu(device) -> dict:
+    """(j) The cascade on PRE_CHANNELS EEG channels × PRE_SECONDS at
+    PRE_FS with a PRE_ICA-component ICA and db4 denoising, and on as many
+    EMG channels, on the card against the CPU: each stage within
+    PRE_FILTER_RTOL / PRE_STAGE_RTOL × max|x|, the bad channels and
+    annotations equal, the ICA sources equal up to sign and order
+    (|corr| ≥ ICA_CORR_MIN), the labels equal under that matching; then
+    the workflow on the card with every stage kept there, its saved
+    output against the CPU cascade's."""
+    rng = np.random.default_rng(12)
+    n = int(PRE_FS * PRE_SECONDS)
+    eeg = rhythm_sources(n, PRE_FS, rng, PRE_ICA - 2, PRE_CHANNELS)
+    eeg += (0.1 * PRE_VOLTS * rng.standard_normal(eeg.shape)).astype(
+        np.float32)
+    plant_artifacts(eeg, PRE_FS, seed=13)
+    emg = (5 * PRE_VOLTS * rng.standard_normal((n, PRE_CHANNELS))).astype(
+        np.float32)
+    plant_artifacts(emg, PRE_FS, seed=14, scale=5.0)
+    kw = dict(sampling_freq=int(PRE_FS), n_ica_components=PRE_ICA,
+              wavelet_type='db4')
+    out = {}
+    for modality, x in (("eeg", eeg), ("emg", emg)):
+        extra = kw if modality == "eeg" else dict(
+            sampling_freq=int(PRE_FS), n_ica_components=None)
+        card = TP.BiosignalPreprocessor(x, modality=modality, device=device,
+                                        **extra)
+        cpu = TP.BiosignalPreprocessor(x, modality=modality, device="cpu",
+                                       **extra)
+        scale = float(np.abs(x).max())
+        t0 = time.perf_counter()
+        _ = card.np_output_data
+        card_sec = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _ = cpu.np_output_data
+        cpu_sec = time.perf_counter() - t0
+        for stage, rtol in STAGES:
+            _require_close(f"preprocessing small {modality} {stage}, card "
+                           "vs cpu", getattr(card, stage),
+                           getattr(cpu, stage), 0.0, rtol * scale)
+        _require(card.bad_channels == cpu.bad_channels
+                 == [card.channel_names[BAD_CHANNEL]],
+                 f"preprocessing small {modality}: bad channels "
+                 f"{card.bad_channels} vs {cpu.bad_channels}")
+        _require(card.bad_annotations == cpu.bad_annotations,
+                 f"preprocessing small {modality}: annotations differ")
+        out[modality] = {"card_sec": card_sec, "cpu_sec": cpu_sec,
+                         "bad_channels": card.bad_channels,
+                         "n_annotations": len(card.bad_annotations)}
+        if modality == "emg":
+            continue
+        ica_c, ica_h = card.ica_result, cpu.ica_result
+        best, match = _matched_sources(
+            ica_c.get_sources(cpu.np_amplitude_compliant_data),
+            ica_h.get_sources(cpu.np_amplitude_compliant_data))
+        labels_c = card.ica_automatic_labels["labels"]
+        labels_h = cpu.ica_automatic_labels["labels"]
+        log(json.dumps({"check": "preprocessing small ICA, card vs cpu",
+                        "source_corr_min": float(best.min()),
+                        "match": match.tolist(), "epochs": [
+                            ica_c.n_iter_, ica_h.n_iter_],
+                        "labels": labels_c, "exclude": ica_c.exclude}))
+        _require(best.min() >= ICA_CORR_MIN
+                 and sorted(match) == list(range(len(match))),
+                 f"ICA sources, card vs cpu: |corr| {best.min()}")
+        _require([labels_h[m] for m in match] == labels_c,
+                 f"IC labels, card vs cpu: {labels_c} vs {labels_h}")
+        _require("heart beat" in labels_c,
+                 f"the planted ECG was not labelled: {labels_c}")
+        out["eeg"].update(ica_epochs=ica_c.n_iter_, labels=labels_c,
+                          exclude=ica_c.exclude)
+        with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+            np.save(Path(tmp) / "2024-01-01 10_00_00 Raw eeg.npy", eeg)
+            wf = TPW.preprocess_subject_modality(
+                0, "eeg", Path(tmp), device=device, device_resident=True,
+                **kw)
+            _require(wf.np_output_data.device.type == "cuda",
+                     "workflow: the output left the card")
+            saved = np.load(next(Path(tmp).glob("*Preprocessed eeg*.npy")))
+        _require_close("preprocessing small workflow on the card vs the "
+                       "cpu cascade", saved, cpu.np_output_data, 0.0,
+                       PRE_STAGE_RTOL * scale)
+    return out
+
+
+def run_preprocessing_study(recording, device) -> dict:
+    """(k) The study recording's EEG in volts with STUDY_RHYTHMS rhythms,
+    the planted line, bad channel and ECG, through the workflow's
+    defaults (25 ICA components,
+    ``device_resident``), each stage timed; db4 denoising of the output;
+    then the flexor grid (×5 in volts, planted alike) through its
+    default cascade."""
+    t0 = time.perf_counter()
+    eeg = recording[0] * np.float32(PRE_VOLTS)
+    eeg += rhythm_sources(len(eeg), FS, np.random.default_rng(20),
+                          STUDY_RHYTHMS, eeg.shape[1])
+    ecg = plant_artifacts(eeg, FS, seed=21)
+    emg = recording[1] * np.float32(5 * PRE_VOLTS)
+    plant_artifacts(emg, FS, seed=22, scale=5.0)
+    host_sec = time.perf_counter() - t0
+    times = {}
+
+    def stage(name, fn):
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t
+        return res
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    x = stage("upload", lambda: torch.from_numpy(eeg).to(device))
+    p = TP.BiosignalPreprocessor(x, int(FS), 'eeg', n_ica_components=25,
+                                 device_resident=True)
+    stage("filter", lambda: p.np_filtered_data)
+    stage("reference", lambda: p.np_referenced_data)
+    stage("amplitude", lambda: p.np_amplitude_compliant_data)
+    ica = stage("ica_fit", lambda: p.ica_result)
+    stage("label_apply", lambda: p.np_artefact_free_data)
+    out = stage("laplacian", lambda: p.np_output_data)
+    den = stage("wavelet", lambda: TW.wavelet_denoise(out, 'db4'))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _require(bool(torch.isfinite(out).all() and torch.isfinite(den).all()),
+             "study preprocessing: non-finite output")
+    drop = line_power(x, FS, device) / line_power(out, FS, device)
+    _require(drop >= LINE_DROP, f"study preprocessing: 50-Hz power fell "
+             f"only {drop:.1f}x")
+    bad = p.channel_names[BAD_CHANNEL]
+    _require(bad in p.bad_channels, f"study preprocessing: {bad} not in "
+             f"bad channels {p.bad_channels}")
+    _require(ica.n_iter_ < ica.max_iter, f"study ICA did not converge in "
+             f"{ica.max_iter} epochs")
+    src = TI._project(p.np_amplitude_compliant_data,
+                      torch.as_tensor(ica._mean, dtype=torch.float32,
+                                      device=device),
+                      torch.as_tensor(ica.unmixing_, dtype=torch.float32,
+                                      device=device))
+    src = src - src.mean(dim=0)
+    e = torch.as_tensor(ecg, device=device)
+    e = e - e.mean()
+    corr = ((src * e[:, None]).sum(dim=0)
+            / (src.norm(dim=0) * e.norm())).abs().cpu().numpy()
+    del src, e
+    k = int(np.argmax(corr))
+    labels = p.ica_automatic_labels["labels"]
+    _require(labels[k] == "heart beat" and k in ica.exclude,
+             f"study preprocessing: the ECG component {k} (|corr| "
+             f"{corr[k]:.3f}) is labelled {labels[k]!r}, exclude "
+             f"{ica.exclude}")
+    res = {"host_sec": host_sec, "stage_sec": times,
+           "ica_epochs": ica.n_iter_,
+           "ica_ms_per_epoch": 1e3 * ica.timings_["epochs_sec"]
+           / ica.n_iter_, "ica_capture_sec": ica.timings_["capture_sec"],
+           "ica_block": ica.block_, "line_drop": drop,
+           "bad_channels": p.bad_channels, "ecg_component": k,
+           "ecg_corr": float(corr[k]), "labels": labels,
+           "exclude": ica.exclude, "peak_mem_gb": peak_gb}
+    del p, x, out, den
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    q = TP.BiosignalPreprocessor(emg, int(FS), 'emg', n_ica_components=None,
+                                 device_resident=True, device=device)
+    emg_out = q.np_output_data
+    torch.cuda.synchronize()
+    res["stage_sec"]["emg_cascade"] = time.perf_counter() - t
+    _require(bool(torch.isfinite(emg_out).all()),
+             "study EMG cascade: non-finite output")
+    emg_drop = line_power(emg, FS, device) / line_power(emg_out, FS, device)
+    _require(emg_drop >= LINE_DROP, f"study EMG: 50-Hz power fell only "
+             f"{emg_drop:.1f}x")
+    _require(q.channel_names[BAD_CHANNEL] in q.bad_channels,
+             f"study EMG: bad channels {q.bad_channels}")
+    res["emg"] = {"line_drop": emg_drop, "bad_channels": q.bad_channels,
+                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del q, emg_out
+    torch.cuda.empty_cache()
+    return res
+
+
 def reset_launches() -> None:
     cuda_msc.msc_jackknife.launches = 0
     cuda_null.null_tile.launches = 0
     cuda_coeffs.coeff_pairs.launches = 0
+    cuda_prng.threefry_draw.launches = 0
     torch.cuda.reset_peak_memory_stats()
 
 
 def launches() -> dict:
     return {"msc_jackknife": cuda_msc.msc_jackknife.launches,
             "null_tile": cuda_null.null_tile.launches,
-            "coeff_pairs": cuda_coeffs.coeff_pairs.launches}
+            "coeff_pairs": cuda_coeffs.coeff_pairs.launches,
+            "threefry": cuda_prng.threefry_draw.launches}
 
 
 def main() -> int:
@@ -1019,6 +1390,7 @@ def main() -> int:
                     "library": lib_path.name,
                     "sources": [p.name for p in _build.sources()]}))
 
+    threefry = check_prng_kernel(device)
     eeg, emg = make_signals(0, N_EEG, N_EMG, SECONDS)
     msc = check_msc_kernel(eeg, emg, device)
     null = check_null_kernel(device)
@@ -1052,8 +1424,8 @@ def main() -> int:
     gram, observed_gram = run_null(*cohort, device)
     gram["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     n_gram = launches()
-    _require(n_gram["null_tile"] > 0,
-             "the null main path did not launch the B2 kernel")
+    _require(n_gram["null_tile"] > 0 and n_gram["threefry"] > 0,
+             f"the null main path did not launch B2 and threefry: {n_gram}")
     log(json.dumps({"phase": "null_main_path", "card": card, **gram,
                     "launches": n_gram}))
     reset_launches()
@@ -1061,8 +1433,10 @@ def main() -> int:
                                        coeff_engine="pallas")
     pallas["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     n_pallas = launches()
-    _require(n_pallas["coeff_pairs"] > 0 and n_pallas["null_tile"] > 0,
-             f"the 'pallas' null path did not launch B3 and B2: {n_pallas}")
+    _require(n_pallas["coeff_pairs"] > 0 and n_pallas["null_tile"] > 0
+             and n_pallas["threefry"] > 0,
+             f"the 'pallas' null path did not launch B3, B2 and threefry: "
+             f"{n_pallas}")
     log(json.dumps({"phase": "null_pallas_engine_path", "card": card,
                     **pallas, "launches": n_pallas}))
     _require_close_observed(observed_pallas, observed_gram,
@@ -1090,6 +1464,8 @@ def main() -> int:
                      rotation_mode="per_window")
     pw["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     n_pw = launches()
+    _require(n_pw["threefry"] > 0, "the per-window null did not launch "
+             "threefry")
     log(json.dumps({"phase": "per_window_null", "card": card, **pw,
                     "launches": n_pw}))
     del pw_cohort
@@ -1099,6 +1475,8 @@ def main() -> int:
                                    PW_CHANNELS), device)
     fft["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     n_fft = launches()
+    _require(n_fft["threefry"] > 0, "the full-FFT null did not launch "
+             "threefry")
     log(json.dumps({"phase": "fft_null", "card": card, **fft,
                     "launches": n_fft}))
     torch.cuda.empty_cache()
@@ -1117,6 +1495,15 @@ def main() -> int:
              "the feature-extraction path did not launch the B1 kernel")
     log(json.dumps({"phase": "feature_extraction", "card": card,
                     "psd": psd, "task_cmc": cmc_task, "launches": n_feat}))
+    torch.cuda.empty_cache()
+    log(json.dumps({"phase": "preprocessing_small_against_cpu", "card": card,
+                    **check_preprocessing_small_against_cpu(device)}))
+    torch.cuda.empty_cache()
+    reset_launches()
+    pre = run_preprocessing_study(recording, device)
+    n_pre = launches()
+    log(json.dumps({"phase": "preprocessing_study_scale", "card": card,
+                    **pre, "launches": n_pre}))
     del recording
     torch.cuda.empty_cache()
     narrow = check_msc_kernel(*make_signals(
@@ -1125,12 +1512,18 @@ def main() -> int:
                     "eeg_channels": len(CMC_EEG_CHANNEL_SUBSET),
                     "emg_channels": N_EMG, **narrow}))
     torch.cuda.empty_cache()
-    log(json.dumps({"phase": "phase_null_config4", "card": card,
-                    **run_phase_null(device)}))
+    reset_launches()
+    phase = run_phase_null(device)
+    n_phase = launches()
+    _require(n_phase["threefry"] > 0, "the phase null did not launch "
+             "threefry")
+    log(json.dumps({"phase": "phase_null_config4", "card": card, **phase,
+                    "launches": n_phase}))
 
     paths = {"cmc": n_cmc, "null_gram": n_gram, "null_pallas": n_pallas,
              "null_per_window": n_pw, "fft_null": n_fft,
-             "feature_extraction": n_feat}
+             "feature_extraction": n_feat, "preprocessing": n_pre,
+             "phase_null": n_phase}
     by_path = lambda k: {p: n[k] for p, n in paths.items()}
     kernels = [
         {"name": "msc_jackknife", "route": "cuda",
@@ -1149,6 +1542,12 @@ def main() -> int:
          "replaces": "mba_tpu/ops/pallas_coeffs.py:83",
          "launches": n_pallas["coeff_pairs"],
          "launches_by_path": by_path("coeff_pairs"), **coeff},
+        {"name": "threefry", "route": "cuda",
+         "source": "mba_tpu_torch/csrc/threefry.cu", "replaces": None,
+         "note": "port-only: jax.random's threefry2x32 bits for the nulls' "
+                 "phases; no TPU kernel",
+         "launches": n_gram["threefry"],
+         "launches_by_path": by_path("threefry"), **threefry},
     ]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

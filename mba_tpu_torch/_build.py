@@ -33,6 +33,8 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint
+_L = ctypes.c_longlong
 # C entry points: name -> argtypes (every pointer and the stream as
 # c_void_p, or ctypes would pass them as 32-bit ints and cut them)
 _SIGNATURES = {
@@ -45,6 +47,10 @@ _SIGNATURES = {
     # eeg, emg, weights, diag, pr, pi, wc, K, F, E, M, accumulate, stream
     "mba_coeff_pairs": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _P),
+    # k0, k1, out, n, mode, minval, span, stream
+    "mba_threefry": (_U, _U, _P, _L, _I, _F, _F, _P),
+    # keys, out, n_keys, n_per, minval, span, stream
+    "mba_threefry_keys": (_P, _P, _L, _L, _F, _F, _P),
 }
 
 

@@ -1,8 +1,8 @@
 """Carry state from the JAX package into the port.
 
-The system has no trained weights.  Its state is the DPSS taper set and
-the rotation-null coefficients; both cross as numpy arrays in the JAX
-package's layouts.
+The system has no trained weights.  Its state is the DPSS taper set, the
+rotation-null coefficients and a fitted ICA; each crosses as numpy
+arrays in the JAX package's layouts.
 """
 from __future__ import annotations
 
@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from mba_tpu_torch.ops.cohort_null import NullState, null_state
+from mba_tpu_torch.ops.ica import InfomaxICA
 
 
 def from_jax_null_state(base_cohort, coef_all, observed_flat,
@@ -55,6 +56,34 @@ def from_jax_null_state_pw(base_cohort, coefw_all, observed_flat,
                          f"{coefw.shape}, observed {obs.shape}")
     as_t = lambda a: torch.as_tensor(a, device=device)
     return null_state(as_t(base), as_t(coefw), as_t(obs))
+
+
+def ica_from_jax(mean, whitener, unmixing, mixing, n_components: int,
+                 n_iter: int, exclude=(), device=None) -> InfomaxICA:
+    """The port's fitted ``InfomaxICA`` from the JAX package's fitted
+    state, given as numpy arrays: ``_mean`` (C,), ``_whitener``
+    (n_comp, C), ``unmixing_`` (n_comp, C), ``mixing_`` (C, n_comp),
+    ``n_components_``, ``n_iter_`` and ``exclude``.  ``apply`` and
+    ``label_components`` then run on that one fit."""
+    unmixing = np.asarray(unmixing, np.float64)
+    mixing = np.asarray(mixing, np.float64)
+    whitener = np.asarray(whitener, np.float64)
+    n_comp = int(n_components)
+    C = unmixing.shape[1]
+    if (unmixing.shape != (n_comp, C) or mixing.shape != (C, n_comp)
+            or whitener.shape != (n_comp, C)):
+        raise ValueError(f"inconsistent shapes: unmixing {unmixing.shape}, "
+                         f"mixing {mixing.shape}, whitener "
+                         f"{whitener.shape}, n_components {n_comp}")
+    ica = InfomaxICA(n_components=n_comp, device=device)
+    ica._mean = np.asarray(mean, np.float64).reshape(C)
+    ica._whitener = whitener
+    ica.unmixing_ = unmixing
+    ica.mixing_ = mixing
+    ica.n_components_ = n_comp
+    ica.n_iter_ = int(n_iter)
+    ica.exclude = [int(i) for i in exclude]
+    return ica
 
 
 def tapers_from_jax(np_tapers, device) -> torch.Tensor:

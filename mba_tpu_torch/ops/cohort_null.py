@@ -16,10 +16,11 @@ features of the phases.  The pipeline:
 2. the cohort epilogue: subject-mean base, stacked coefficients
    (J, F, N, P) and the observed statistic (φ = 0);
 3. the relayout for the kernel, ``cuda_null.prepare_null_coeffs``;
-4. per chunk of surrogates: φ from a seeded ``torch.Generator``, trig
-   features, and the surrogate tile ``cuda_null.null_tile`` (kernel B2 on
-   a CUDA tensor, its plain version on a CPU tensor) → per-surrogate max
-   and per-cell exceedance counts.
+4. per chunk of surrogates: φ drawn as the JAX package draws it
+   (``jax.random``'s threefry, ``ops/prng.py``; on the card the kernel of
+   ``ops/cuda_prng.py``), trig features, and the surrogate tile
+   ``cuda_null.null_tile`` (kernel B2 on a CUDA tensor, its plain version
+   on a CPU tensor) → per-surrogate max and per-cell exceedance counts.
 
 The inference runs on a maximal disjoint window subset by default
 (``p_value_windows='disjoint'``): the shared rotation is distribution-
@@ -45,6 +46,7 @@ import torch
 
 from mba_tpu_torch._device import (entry_device, not_ported, synchronize,
                                    to_device)
+from mba_tpu_torch.ops import cuda_prng, prng
 from mba_tpu_torch.ops.cuda_coeffs import _F32_TINY, K_MAX as COEFF_K_MAX
 from mba_tpu_torch.ops.cuda_null import (feature_rows, null_epilogue,
                                          null_features, null_tile,
@@ -139,13 +141,12 @@ def null_state(base_cohort: torch.Tensor, coef_all: torch.Tensor,
         coefT=prepare_null_coeffs(coef_all), n_subjects=J, n_feats=P)
 
 
-def draw_phases(generator: torch.Generator, J: int, n_chunk: int, K: int,
-                nF: int) -> torch.Tensor:
-    """Uniform φ in [0, 2π), (J, n_chunk, K, nF) float32 on the
-    generator's device (the layout of ``cohort_null.py:724``)."""
-    u = torch.rand((J, n_chunk, K, nF), generator=generator,
-                   device=generator.device, dtype=torch.float32)
-    return u * np.float32(2.0 * np.pi)
+def draw_phases(key, J: int, n_chunk: int, K: int, nF: int, device
+                ) -> torch.Tensor:
+    """φ = ``jax.random.uniform(key, (J, n_chunk, K, nF), minval=0,
+    maxval=2π)``, float32 on ``device`` (``cohort_null.py:724``)."""
+    return cuda_prng.uniform(key, (J, n_chunk, K, nF), 0.0, 2.0 * np.pi,
+                             device)
 
 
 def null_chunk(phi: torch.Tensor, state: NullState):
@@ -158,18 +159,13 @@ def null_chunk(phi: torch.Tensor, state: NullState):
                      state.n_subjects)
 
 
-def window_phases(seed: int, chunk_index: int, Wp: int, J: int,
-                  n_chunk: int, K: int, nF: int, device):
+def window_phases(key, Wp: int, J: int, n_chunk: int, K: int, nF: int,
+                  device):
     """φ for each of the Wp windows of one per-window surrogate chunk,
-    (J, n_chunk, K, nF) each.  Every (chunk, window) draws from its own
-    ``torch.Generator``, seeded from (seed, chunk, window) through numpy's
-    ``SeedSequence``: the streams are independent, as ``fold_in(key, w)``
-    makes them in the JAX package."""
+    (J, n_chunk, K, nF) each: window w draws from ``fold_in(key, w)``,
+    as ``cohort_null.py:441-443`` does."""
     for w in range(Wp):
-        state = np.random.SeedSequence([seed, chunk_index, w])
-        g = torch.Generator(device=device).manual_seed(
-            int(state.generate_state(1, np.uint64)[0] >> np.uint64(1)))
-        yield draw_phases(g, J, n_chunk, K, nF)
+        yield draw_phases(prng.fold_in(key, w), J, n_chunk, K, nF, device)
 
 
 def null_chunk_pw(phases, state: NullState):
@@ -289,10 +285,12 @@ def cohort_msc_rotation_null(
     Same arguments and result dictionary as
     ``mba_tpu.ops.cohort_null.cohort_msc_rotation_null``; arrays come back
     as numpy.  ``device`` as in ``coherence.multitaper_msc``.  Surrogate
-    phases come from ``torch.Generator(device).manual_seed(seed)`` (per
-    window and chunk in the per-window mode, :func:`window_phases`), so
-    the draws differ from the JAX package's for the same seed (the null
-    distribution is the same).  The contraction runs in float32.
+    phases follow the JAX package's keys (``cohort_null.py:1243-1256``):
+    ``key = PRNGKey(seed)``, per chunk ``key, sub = split(key)``, then
+    :func:`draw_phases` of ``sub`` (of ``fold_in(sub, w)`` per window in
+    the per-window mode, :func:`window_phases`), so at equal
+    ``surrogate_chunk`` a seed gives the JAX package's phases on either
+    device.  The contraction runs in float32.
 
     ``coeff_engine``: ``'auto'`` and ``'gram'`` run the gram matmuls;
     ``'pallas'`` the chunked window pass through kernel B3 (its plain
@@ -478,16 +476,17 @@ def cohort_msc_rotation_null(
     del coef_all
     counts = torch.zeros((nF, nE * nM), dtype=torch.int32, device=device)
     chunk = int(min(surrogate_chunk, n_surrogates))
-    gen = torch.Generator(device=device).manual_seed(seed)
+    key = prng.prng_key(seed)
     max_stats = []
     n_total = 0
     while n_total < n_surrogates:
+        key, sub = prng.split(key)
         if per_window:
             ms, inc = null_chunk_pw(
-                window_phases(seed, len(max_stats), Wp, J, chunk, K, nF,
-                              device), state)
+                window_phases(sub, Wp, J, chunk, K, nF, device), state)
         else:
-            ms, inc = null_chunk(draw_phases(gen, J, chunk, K, nF), state)
+            ms, inc = null_chunk(draw_phases(sub, J, chunk, K, nF, device),
+                                 state)
         counts += inc
         max_stats.append(ms)
         n_total += chunk
@@ -618,8 +617,10 @@ def cohort_msc_fft_null(
     channels; DC and Nyquist stay real), resynthesises the EMG with
     ``torch.fft.irfft`` and re-evaluates the cohort MSC map over ALL
     windows.  Same arguments and result dictionary as the JAX function,
-    plus ``device``; arrays come back as numpy.  Phases come from
-    ``torch.Generator(device).manual_seed(seed)``.  A chunk of S
+    plus ``device``; arrays come back as numpy.  Phases follow the JAX
+    package's keys (``cohort_null.py:604-631``): per chunk ``key, sub =
+    split(key)``, ``split(sub, chunk)``, one ``uniform`` of (J, n_f) per
+    surrogate, so a seed gives its phases on either device.  A chunk of S
     surrogates holds S·J·n_samples·M float32 resynthesised samples.
     """
     device = entry_device(device, eeg_cohort, emg_cohort)
@@ -659,12 +660,14 @@ def cohort_msc_fft_null(
     t_null0 = time.perf_counter()
     counts = torch.zeros((nF, nE * nM), dtype=torch.int32, device=device)
     chunk = int(min(surrogate_chunk, n_surrogates))
-    gen = torch.Generator(device=device).manual_seed(seed)
+    key = prng.prng_key(seed)
     max_stats = []
     n_total = 0
     while n_total < n_surrogates:
-        phases = torch.rand((chunk, J, spec.shape[1]), generator=gen,
-                            device=device) * np.float32(2.0 * np.pi)
+        key, sub = prng.split(key)
+        phases = cuda_prng.uniform_keys(prng.split(sub, chunk),
+                                        (J, spec.shape[1]), 0.0,
+                                        2.0 * np.pi, device)
         phases[..., 0] = 0.0
         if n_samples % 2 == 0:
             phases[..., -1] = 0.0

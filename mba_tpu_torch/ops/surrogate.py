@@ -3,16 +3,17 @@
 
 - :func:`insert_bad_channels`, :func:`generate_noise`,
   :func:`add_noise_to_channels`: host fault injection, copied (numpy);
-- :func:`phase_randomize`: FFT phase-randomised surrogates on an explicit
-  ``torch.Generator``; :func:`rotate_phases` is its core on given phases
-  and :func:`draw_chunk_phases` draws them;
+- :func:`phase_randomize`: FFT phase-randomised surrogates from an
+  explicit key; :func:`rotate_phases` is its core on given phases and
+  :func:`draw_chunk_phases` draws them;
 - :func:`msc_phase_randomized_null`: the surrogate null of the
   window-averaged MSC spectrum, with the exact per-cell histogram and
   the in-band max statistic.
 
-The JAX package draws its phases with ``jax.random``, so the two
-packages' surrogates differ by design; the parity tests hand the port
-the JAX draws through :func:`draw_chunk_phases`.  The JAX kernels are
+The phases are ``jax.random``'s threefry draws under the JAX package's
+key discipline (``ops/prng.py``; the card draws them with the kernel of
+``ops/cuda_prng.py``), so a seed gives the JAX package's surrogates on
+the CPU and on the card.  The JAX kernels are
 plain XLA (no Pallas), so this module is plain PyTorch: cuFFT through
 ``torch.fft`` on the card.
 """
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from mba_tpu_torch._device import entry_device, synchronize, to_device
+from mba_tpu_torch.ops import cuda_prng, prng
 from mba_tpu_torch.ops.dpss import filtered_tapers
 from mba_tpu_torch.ops.framing import window_grid
 
@@ -116,14 +118,13 @@ def add_noise_to_channels(input_array: np.ndarray, noise_db: float,
 # --------------------------------------------------------------------------
 # FFT phase-randomised surrogates
 # --------------------------------------------------------------------------
-def draw_chunk_phases(generator: torch.Generator, n_surrogates: int,
-                      n_freqs: int, n_channels: int, device
-                      ) -> torch.Tensor:
-    """(n_surrogates, n_freqs, n_channels) phases, uniform on [0, 2π),
-    drawn on ``device`` from ``generator`` (which must live there)."""
-    u = torch.rand((n_surrogates, n_freqs, n_channels), generator=generator,
-                   dtype=torch.float32, device=device)
-    return u * (2 * np.pi)
+def draw_chunk_phases(key, n_surrogates: int, n_freqs: int,
+                      n_channels: int, device) -> torch.Tensor:
+    """(n_surrogates, n_freqs, n_channels) phases on ``device``,
+    ``jax.random.uniform(key, shape, minval=0, maxval=2π)`` as
+    ``surrogate.py:132-134`` draws them."""
+    return cuda_prng.uniform(key, (n_surrogates, n_freqs, n_channels), 0.0,
+                             2 * np.pi, device)
 
 
 def rotate_phases(xf: torch.Tensor, n: int, phases: torch.Tensor
@@ -142,8 +143,8 @@ def rotate_phases(xf: torch.Tensor, n: int, phases: torch.Tensor
     return torch.fft.irfft(xf[None] * rot, n=n, dim=1)
 
 
-def phase_randomize(generator: torch.Generator, x: torch.Tensor,
-                    n_surrogates: int) -> torch.Tensor:
+def phase_randomize(key, x: torch.Tensor, n_surrogates: int
+                    ) -> torch.Tensor:
     """FFT phase-randomised surrogates of ``x`` (n_samples, n_channels).
 
     Preserves the amplitude spectrum (hence PSD and autocorrelation)
@@ -151,7 +152,7 @@ def phase_randomize(generator: torch.Generator, x: torch.Tensor,
     independent phases.  Returns (n_surrogates, n_samples, n_channels).
     """
     xf = torch.fft.rfft(x, dim=0)
-    phases = draw_chunk_phases(generator, n_surrogates, xf.shape[0],
+    phases = draw_chunk_phases(key, n_surrogates, xf.shape[0],
                                x.shape[1], x.device)
     return rotate_phases(xf, x.shape[0], phases)
 
@@ -284,8 +285,10 @@ def msc_phase_randomized_null(
       ``max_stat_only``;
     - ``p_fwe = (1 + #{max_stat ≥ observed_max}) / (1 + n_surrogates)``.
 
-    Each chunk's phases come from :func:`draw_chunk_phases` on a
-    ``torch.Generator`` seeded with ``seed`` on ``device``.  The EEG
+    Each chunk's phases come from :func:`draw_chunk_phases` with the key
+    of ``surrogate.py:366,415``: ``key = PRNGKey(seed)``, then ``key, sub
+    = split(key)`` per chunk, so a seed gives the JAX package's phases
+    on either device (at equal ``surrogate_chunk``).  The EEG
     spectra do not change between surrogates and are computed once.
     ``device``: default the device of a tensor input, else the card
     (``device="cpu"`` for the CPU).
@@ -329,7 +332,7 @@ def msc_phase_randomized_null(
     t_observed = time.perf_counter() - t_ob0
 
     t_null0 = time.perf_counter()
-    generator = torch.Generator(device).manual_seed(seed)
+    key = prng.prng_key(seed)
     emg_f = torch.fft.rfft(emg_t, dim=0)
     n_freqs = len(freqs)
     n_cells = n_freqs * n_eeg * n_emg
@@ -342,8 +345,8 @@ def msc_phase_randomized_null(
     n_hist_total = 0
     done = 0
     while done < n_surrogates:
-        phases = draw_chunk_phases(generator, chunk, emg_f.shape[0], n_emg,
-                                   device)
+        key, sub = prng.split(key)
+        phases = draw_chunk_phases(sub, chunk, emg_f.shape[0], n_emg, device)
         spectra = _surrogate_chunk(phases, emg_f, eeg_spec, frame_idx,
                                    tapers, inv_fs_n, n_samples, width)
         take = min(chunk, n_surrogates - done)

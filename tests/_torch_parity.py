@@ -45,7 +45,7 @@ def jax_chunk_phases(seed: int):
     import jax
     state = {"key": jax.random.PRNGKey(seed)}
 
-    def draw(generator, n_surrogates, n_freqs, n_channels, device):
+    def draw(key, n_surrogates, n_freqs, n_channels, device):
         state["key"], sub = jax.random.split(state["key"])
         phases = jax.random.uniform(sub, (n_surrogates, n_freqs, n_channels),
                                     minval=0.0, maxval=2 * np.pi)

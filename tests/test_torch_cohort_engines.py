@@ -7,8 +7,9 @@ Observed maps are compared at the tolerance of the engine that made
 them: the chunked engines at rtol 2e-5 / atol 2e-6 (the JAX package's
 bound between its own engines, ``tests/test_pallas_coeffs.py:52``), the
 gram engine at rtol 2e-4 / atol 2e-5·max (``tests/test_gram_coeffs.py:
-65-68``).  The surrogate draws differ by generator, so nulls are
-compared in distribution, or on the same numpy phases.
+65-68``).  Nulls are compared in distribution, or on the same numpy
+phases (``tests/test_torch_prng.py`` holds the port's own draws to the
+JAX package's at one seed).
 """
 import numpy as np
 import pytest
@@ -22,7 +23,7 @@ from mba_tpu.ops.framing import window_grid
 
 from mba_tpu_torch import convert
 from mba_tpu_torch.ops import cohort_null as TN
-from mba_tpu_torch.ops import cuda_coeffs
+from mba_tpu_torch.ops import cuda_coeffs, prng
 
 from _torch_parity import cohort_subject
 
@@ -205,9 +206,10 @@ def test_null_chunk_pw_matches_jax_on_the_same_phases(S, seed):
 
 
 def test_window_phases_are_separate_streams():
-    a = list(TN.window_phases(7, 0, 3, 2, 4, 3, 5, "cpu"))
-    b = list(TN.window_phases(7, 0, 3, 2, 4, 3, 5, "cpu"))
-    c = list(TN.window_phases(7, 1, 3, 2, 4, 3, 5, "cpu"))
+    key = prng.prng_key(7)
+    a = list(TN.window_phases(key, 3, 2, 4, 3, 5, "cpu"))
+    b = list(TN.window_phases(key, 3, 2, 4, 3, 5, "cpu"))
+    c = list(TN.window_phases(prng.split(key)[1], 3, 2, 4, 3, 5, "cpu"))
     assert len(a) == 3 and tuple(a[0].shape) == (2, 4, 3, 5)
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, rtol=0, atol=0)

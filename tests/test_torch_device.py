@@ -6,6 +6,10 @@ raises where there is no card, naming ``device="cpu"``, and never carries
 on on the CPU.  ``torch.cuda.is_available`` is patched to False, so the
 refusals are checked on a machine with a card too.
 """
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -13,14 +17,32 @@ import torch
 from mba_tpu_torch._device import entry_device, resolve_device
 from mba_tpu_torch.ops import cohort_null as TN
 from mba_tpu_torch.ops import coherence as TC
+from mba_tpu_torch.ops import filters as TFi
+from mba_tpu_torch.ops import ica as TI
 from mba_tpu_torch.ops import spectral as TS
 from mba_tpu_torch.ops import surrogate as TSu
 from mba_tpu_torch.ops.dpss import filtered_tapers
+from mba_tpu_torch.ops import wavelet as TW
+from mba_tpu_torch.pipeline import preprocessing as TP
 from mba_tpu_torch.pipeline import signal_features as TF
 
 from _torch_parity import cohort_subject, coupled_signals
 
 torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def test_importing_the_package_turns_tf32_off():
+    """Fault C1: float32 matmuls and convolutions stay float32 on the
+    card (cuDNN's default allows TF32), pinned in a fresh interpreter."""
+    code = ("import torch, mba_tpu_torch\n"
+            "assert not torch.backends.cuda.matmul.allow_tf32\n"
+            "assert not torch.backends.cudnn.allow_tf32\n"
+            "assert torch.get_float32_matmul_precision() == 'highest'\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_numpy_input_resolves_to_the_card():
@@ -75,6 +97,15 @@ def _calls():
         "compute_task_wise_aggregated_cmc": lambda **d:
             TF.compute_task_wise_aggregated_cmc(
                 eeg, emg, 256, "flexor", window_size_sec=1.0, **d),
+        "bandpass_filter": lambda **d: TFi.bandpass_filter(
+            eeg, 256.0, 8.0, 30.0, **d),
+        "notch_filter": lambda **d: TFi.notch_filter(eeg, 256.0, [50.0],
+                                                     **d),
+        "wavelet_denoise": lambda **d: TW.wavelet_denoise(eeg, 'db4', **d),
+        "InfomaxICA.fit": lambda **d: TI.InfomaxICA(
+            2, max_iter=5, **d).fit(eeg),
+        "BiosignalPreprocessor": lambda **d: TP.BiosignalPreprocessor(
+            eeg, 256, 'eeg', n_ica_components=None, **d).np_output_data,
     }
 
 
@@ -83,7 +114,9 @@ ENTRY_POINTS = ["multitaper_msc", "cohort_msc_rotation_null",
                 "cohort_msc_null", "multitaper_psd", "welch_psd",
                 "amplitude_spectrum", "resample_data",
                 "jackknife_coherence_and_ci",
-                "compute_task_wise_aggregated_cmc"]
+                "compute_task_wise_aggregated_cmc", "bandpass_filter",
+                "notch_filter", "wavelet_denoise", "InfomaxICA.fit",
+                "BiosignalPreprocessor"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

@@ -26,7 +26,9 @@ import mba_tpu_torch
 from mba_tpu_torch import _build
 from mba_tpu_torch.ops import cohort_null as TN
 from mba_tpu_torch.ops import coherence as TC
-from mba_tpu_torch.ops import cuda_coeffs, cuda_msc, cuda_null
+from mba_tpu_torch.ops import ica as TI
+from mba_tpu_torch.ops import cuda_coeffs, cuda_msc, cuda_null, cuda_prng
+from mba_tpu_torch.ops import prng
 from mba_tpu_torch.ops import spectral as TS
 from mba_tpu_torch.ops import surrogate as TSu
 from mba_tpu_torch.ops.dpss import filtered_tapers
@@ -77,6 +79,11 @@ def test_package_imports_neither_jax_nor_mba_tpu():
             "mba_tpu_torch.pipeline.data_analysis",
             "mba_tpu_torch.pipeline.cbpa",
             "mba_tpu_torch.workflows.subject_feature_extraction_workflow",
+            "mba_tpu_torch.ops.prng", "mba_tpu_torch.ops.cuda_prng",
+            "mba_tpu_torch.ops.filters", "mba_tpu_torch.ops.wavelet",
+            "mba_tpu_torch.ops.ic_classify", "mba_tpu_torch.ops.ica",
+            "mba_tpu_torch.pipeline.preprocessing",
+            "mba_tpu_torch.workflows.preprocessing_workflow",
             "mba_tpu_torch.convert"} <= set(names)
     code = (f"import importlib, sys\n"
             f"for name in {names!r}:\n"
@@ -101,7 +108,7 @@ def test_build_command_targets_sm90a_without_fast_math(tmp_path):
     CPU does)."""
     srcs = _build.sources()
     assert {p.name for p in srcs} == {"msc_jackknife.cu", "null_tile.cu",
-                                      "coeff_pairs.cu"}
+                                      "coeff_pairs.cu", "threefry.cu"}
     for src in srcs:
         cmd = _build.compile_command(tmp_path / "k.o", src, "nvcc")
         assert cmd[0] == "nvcc" and cmd[-1] == str(src)
@@ -172,7 +179,7 @@ def test_cpu_tensors_take_the_plain_null_tile():
     J, nF, N, K = 2, 3, 100, 3
     coef, base, obs = null_toy(J, nF, N, K, seed=1)
     state = TN.null_state(t32(base), t32(coef), t32(obs))
-    phi = TN.draw_phases(torch.Generator().manual_seed(0), J, 13, K, nF)
+    phi = TN.draw_phases(prng.prng_key(0), J, 13, K, nF, "cpu")
     G = cuda_null.null_features(TN.phase_features(phi))
     before = cuda_null.null_tile.launches
     ms, cnt = cuda_null.null_tile(G, state.coefT, state.base_flat,
@@ -332,9 +339,8 @@ def _check_null_kernel(cuda, J, K, S, N, nF):
     coef, base, obs = null_toy(J, nF, N, K, seed=S)
     state = TN.null_state(t32(base).to(cuda), t32(coef).to(cuda),
                           t32(obs).to(cuda))
-    gen = torch.Generator(cuda).manual_seed(S)
-    G = cuda_null.null_features(
-        TN.phase_features(TN.draw_phases(gen, J, S, K, nF)))
+    G = cuda_null.null_features(TN.phase_features(
+        TN.draw_phases(prng.prng_key(S), J, S, K, nF, cuda)))
     before = cuda_null.null_tile.launches
     ms, cnt = cuda_null.null_tile(G, state.coefT, state.base_flat,
                                   state.observed_flat, J)
@@ -595,24 +601,49 @@ def test_rotation_engines_on_card_match_cpu(cuda, kw):
                                rtol=2e-5, atol=2e-6)
     assert got["max_stat"].shape == (600,)
     assert np.isfinite(got["max_stat"]).all()
+    # the same seed draws the same phases on both devices
+    np.testing.assert_allclose(got["max_stat"], ref["max_stat"], rtol=1e-5,
+                               atol=1e-5)
+
+
+# ---- the threefry draw on the card ----------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape,bounds", [
+    ("uniform", (12, 500, 5, 175), (0.0, 2 * np.pi)),   # the null's draw
+    ("uniform", (3, 7, 13), (-3.5, 7.25)),
+    ("bits", (1001,), (0.0, 1.0)),
+    ("pairs", (1000,), (0.0, 1.0))])                     # split(key, 1000)
+def test_threefry_kernel_equals_plain_on_card(cuda, kind, shape, bounds):
+    """Bit for bit: the kernel's integer rounds are exact and its one
+    fused multiply-add is the plain version's single rounding."""
+    key = prng.split(prng.prng_key(9))[1]
+    before = cuda_prng.threefry_draw.launches
+    got = cuda_prng.threefry_draw(key, shape, kind, cuda, *bounds)
+    torch.cuda.synchronize()
+    assert cuda_prng.threefry_draw.launches == before + 1
+    assert got.device.type == "cuda"
+    ref = cuda_prng.threefry_draw(key, shape, kind, "cpu", *bounds)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_keys,shape", [(8, (2, 1025)), (3, (7,)),
+                                          (1, (5, 175))])
+def test_threefry_many_keys_equal_plain_on_card(cuda, n_keys, shape):
+    """One launch for many keys (the full-FFT null's per-surrogate
+    draws), bit for bit the plain version's key by key."""
+    keys = prng.split(prng.prng_key(11), n_keys)
+    before = cuda_prng.threefry_draw.launches
+    got = cuda_prng.uniform_keys(keys, shape, 0.0, 2 * np.pi, cuda)
+    torch.cuda.synchronize()
+    assert cuda_prng.threefry_draw.launches == before + 1
+    ref = cuda_prng.uniform_keys(keys, shape, 0.0, 2 * np.pi, "cpu")
+    assert got.shape == ref.shape and torch.equal(got.cpu(), ref)
 
 
 # ---- the feature-extraction stage and the phase null on the card ----------
-
-_DRAW_PHASES = TSu.draw_chunk_phases
-
-
-def _cpu_phases(seed):
-    """A stand-in for ``surrogate.draw_chunk_phases`` that draws on the
-    CPU from a fresh generator, so the card and the CPU get the same
-    phases."""
-    gen = torch.Generator().manual_seed(seed)
-
-    def draw(generator, n_surrogates, n_freqs, n_channels, device):
-        return _DRAW_PHASES(gen, n_surrogates, n_freqs, n_channels,
-                            "cpu").to(device)
-    return draw
-
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("log_scale", [False, True])
@@ -717,8 +748,9 @@ def test_jackknife_coherence_and_ci_on_card_runs_the_kernel(cuda):
 
 
 @pytest.mark.cuda
-def test_phase_null_on_card_matches_cpu(cuda, monkeypatch):
-    """The same phases on the card and the CPU: observed within 5e-5,
+def test_phase_null_on_card_matches_cpu(cuda):
+    """One seed, so the same phases, on the card and the CPU (the
+    threefry kernel draws the CPU's bits): observed within 5e-5,
     max_stat rtol 1e-4 / atol 5e-5, p_fwe equal, quantiles equal but in
     at most 1e-3 of the cells, by one bin.  cuFFT and the CPU's FFT
     differ by ~1e-7, so a cell's quantile moves where its order
@@ -728,9 +760,7 @@ def test_phase_null_on_card_matches_cpu(cuda, monkeypatch):
     eeg, emg = coupled_signals(fs=2048, seconds=8, n_eeg=2, n_emg=2)
     kw = dict(window_length_sec=2.0, n_surrogates=200, surrogate_chunk=64,
               band=(13.0, 100.0))
-    monkeypatch.setattr(TSu, "draw_chunk_phases", _cpu_phases(5))
     got = TSu.msc_phase_randomized_null(eeg, emg, 2048.0, device=cuda, **kw)
-    monkeypatch.setattr(TSu, "draw_chunk_phases", _cpu_phases(5))
     ref = TSu.msc_phase_randomized_null(eeg, emg, 2048.0, **kw, device="cpu")
     np.testing.assert_allclose(got["observed"], ref["observed"], rtol=0,
                                atol=5e-5)
@@ -740,3 +770,26 @@ def test_phase_null_on_card_matches_cpu(cuda, monkeypatch):
     for q in (0.95, 0.99):
         d = np.abs(got["null_quantiles"][q] - ref["null_quantiles"][q]) * 1024
         assert d.max() <= 1 and (d > 0).mean() <= 1e-3
+
+
+# ---- the ICA's CUDA-graph epoch on the card -------------------------------
+
+@pytest.mark.cuda
+def test_ica_graph_epochs_on_card_match_cpu(cuda):
+    """The epoch captured once and replayed on the card against the eager
+    epoch on the CPU, on three sources mixed into six channels: the same
+    number of epochs (the same threefry shifts), and the same sources up
+    to sign and order at |corr| ≥ 0.999."""
+    rng = np.random.default_rng(0)
+    t = np.arange(256 * 30) / 256
+    src = np.stack([np.sign(np.sin(2 * np.pi * 0.7 * t)),
+                    np.sin(2 * np.pi * 11 * t + 1.0),
+                    rng.laplace(size=len(t))], axis=1)
+    x = src @ rng.standard_normal((6, 3)).T + 0.02 * rng.standard_normal(
+        (len(t), 6))
+    got = TI.InfomaxICA(3, device=cuda).fit(x)
+    ref = TI.InfomaxICA(3, device="cpu").fit(x)
+    assert got.n_iter_ == ref.n_iter_ < got.max_iter
+    assert got.timings_["capture_sec"] > 0
+    c = np.abs(np.corrcoef(got.get_sources(x).T, ref.get_sources(x).T)[:3, 3:])
+    assert c.max(axis=1).min() >= 0.999

@@ -3,9 +3,10 @@ with ``mba_tpu.ops.surrogate``.
 
 Mirrors ``tests/test_ops_surrogate.py``.  The host fault injection is a
 copy and must agree exactly.  The phase-randomised null draws its phases
-from a ``torch.Generator`` where JAX uses ``jax.random``, so the parity
-tests hand the port the JAX draws (``_torch_parity.jax_chunk_phases``)
-and hold it to: ``observed`` within atol 5e-5; ``max_stat`` within rtol
+as ``jax.random`` does (``ops/prng.py``); the parity tests here also hand
+the port the JAX draws through the module function
+(``_torch_parity.jax_chunk_phases``), and hold it to: ``observed``
+within atol 5e-5; ``max_stat`` within rtol
 1e-4 / atol 5e-5; ``p_fwe`` equal; ``null_quantiles`` equal except in at
 most 1e-3 of the cells, and there by one bin (a coherence within float32
 rounding of a bin edge may fall on either side).
@@ -16,6 +17,7 @@ import torch
 
 from mba_tpu.ops import surrogate as JS
 
+from mba_tpu_torch.ops import prng
 from mba_tpu_torch.ops import surrogate as TS
 
 from _torch_parity import jax_chunk_phases, t32, to_np
@@ -108,8 +110,8 @@ def test_rotate_phases_matches_jax_phase_randomize(n):
 
 def test_phase_randomize_keeps_amplitude_and_is_real():
     x = np.random.default_rng(0).standard_normal((512, 2)).astype(np.float32)
-    gen = torch.Generator().manual_seed(0)
-    surr = TS.phase_randomize(gen, torch.from_numpy(x), 4).numpy()
+    surr = TS.phase_randomize(prng.prng_key(0), torch.from_numpy(x),
+                              4).numpy()
     assert surr.dtype == np.float32 and surr.shape == (4, 512, 2)
     for s in surr:
         np.testing.assert_allclose(np.abs(np.fft.rfft(s, axis=0)),
@@ -121,10 +123,8 @@ def test_phase_randomize_keeps_amplitude_and_is_real():
 
 
 def test_draw_chunk_phases_range_and_seed():
-    a = TS.draw_chunk_phases(torch.Generator().manual_seed(5), 50, 33, 2,
-                             "cpu")
-    b = TS.draw_chunk_phases(torch.Generator().manual_seed(5), 50, 33, 2,
-                             "cpu")
+    a = TS.draw_chunk_phases(prng.prng_key(5), 50, 33, 2, "cpu")
+    b = TS.draw_chunk_phases(prng.prng_key(5), 50, 33, 2, "cpu")
     assert a.dtype == torch.float32 and tuple(a.shape) == (50, 33, 2)
     assert torch.equal(a, b)
     assert float(a.min()) >= 0.0 and float(a.max()) < 2 * np.pi
