@@ -56,7 +56,23 @@ result):
    through its default cascade: the line must drop 100×, the bad
    channel and the ECG component ('heart beat', excluded) be caught,
    the ICA converge; each stage timed, the ICA per epoch;
-9. one JSON line describing the kernels: per kernel its launches on its
+9. the statistics stage, one JSON line: (a) the batched REML (S = 256),
+   the bootstrap's weighted REML (B = 200, zero-weight rows), the CBPA
+   null's sign matrices at (c)'s shape bit for bit, and the cluster null
+   (128 permutations: the sign matrices bit for bit, H0, exact-mode p)
+   on the card against the CPU; then, with the launch
+   counts set to 0: (b) a "Combined Statistics 1seg" frame of 12
+   subjects × 30 trials (DV ≈ 0.9 with a planted 0.015 effect), the
+   Level-1 fits on the host and ``run_power_analysis`` on the card over
+   every fixed effect × 7 multipliers × 500 simulations, timed as host
+   draws, upload, solve per block and download: NaN fraction 0, the
+   planted effect's power ≥ 0.95, a near-null covariate's rate in
+   [0.02, 0.09], two jobs equal on the CPU within 2/500; (c) the
+   2 000-resample mediation bootstrap against the CPU, and the two CBPA
+   contrasts (12 × 40 × 11 channels, tail 1; 12 × 40 × 64, tail 0) at
+   1 024 permutations, each with a cluster at p < 0.05 and the threefry
+   kernel launched;
+10. one JSON line describing the kernels: per kernel its launches on its
    main path (and on every path, ``launches_by_path``), its error
    against the plain version, CUDA-event times of the kernel and the
    plain version, its bound (the larger of the bytes it must move over
@@ -179,6 +195,40 @@ PRE_STAGE_RTOL = 1e-4    # preprocessing.py); the stages after the ICA
 ICA_CORR_MIN = 0.999     # sources up to sign and order
 LINE_DROP = 100.0        # line power at 50 Hz, input over output
 QUEUE_AHEAD_CYCLES = 50_000_000   # ~25 ms of spin at the H100's ~2 GHz
+# the statistics stage: a "Combined Statistics 1seg" frame of 12 subjects
+# × 30 trials with the RQ-A Level-1 columns, a DV of ~0.9 with a planted
+# 0.015 Happy-vs-Silence effect (commit 4d5deb3's power check), force
+# 20-60 %MVC, trial id 0-29, per-subject skill and dancing habit, and a
+# GSR mediator; the power grid of tools/bench_pipeline.py:727-733 (every
+# Level-1 fixed effect × 7 multipliers × 500 simulations); the mediation
+# bootstrap; the two CBPA contrasts of tools/bench_pipeline.py:675-692
+STAT_SUBJECTS, STAT_TRIALS = 12, 30
+STAT_CATEGORIES = ("Silence", "Happy", "Groovy", "Sad", "Classic")
+STAT_DV, STAT_MEDIATOR = "CMC_Flexor_max_beta", "GSR"
+PLANTED_EFFECT, STAT_RESID_SD, STAT_SUBJECT_SD = 0.015, 0.015, 0.02
+HAPPY = "C(Q('Category or Silence'))[T.Happy]"
+POWER_SIMULATIONS, MIN_POWER_JOBS = 500, 35
+PLANTED_POWER_MIN = 0.95
+NEAR_NULL_RATE = (0.02, 0.09)      # α = 0.05 within ~3 binomial SDs at 500
+POWER_CPU_DIFF = 2 / POWER_SIMULATIONS
+MEDIATION_RESAMPLES = 2000
+CBPA_PERMUTATIONS, CBPA_TIMES = 1024, 40
+CBPA_SEED, CBPA_CHUNK = 42, 256    # cluster_permutation_1samp_test's defaults
+# card against CPU, small: REML at S = 256 (β within REML_BETA_SE of its
+# SE: two float32 grid solves of this design, as the port and the JAX
+# package on the CPU are, whose bound tests/test_torch_models.py holds
+# at this design and at the power grid's Level-1 design; each lies
+# 4-6e-3 SE from the float64 host fit there; SE and scale within
+# REML_RTOL, the JAX package's batched-vs-host tolerance, tests/
+# test_models.py:161-166); the weighted solver at B = 200
+# (β within WEIGHTED_SD_FRAC of β's spread over the resamples: a
+# percentile CI moves by < 1 % of its width); the cluster null at 128
+# permutations (signs bit for bit; H0 within rtol/atol 1e-4, tests/
+# test_stats_golden.py:298; exact-mode p equal)
+REML_SMALL, WEIGHTED_SMALL, CLUSTER_SMALL = 256, 200, 128
+REML_BETA_SE, REML_RTOL = 1e-2, 2e-3
+WEIGHTED_SD_FRAC = 1e-2
+H0_RTOL, H0_ATOL = 1e-4, 1e-4
 
 
 def log(msg: str) -> None:
@@ -1354,6 +1404,296 @@ def run_preprocessing_study(recording, device) -> dict:
     return res
 
 
+def make_statistics_frame(seed=11):
+    """The study's "Combined Statistics 1seg" frame: 12 subjects × 30
+    trials cycling through the five categories, DV ≈ 0.9 + 0.015·Happy +
+    0.01·u + subject intercept (SD 0.02) + noise (SD 0.015), where u is
+    the GSR mediator's own noise (GSR = 2 + 0.5·Happy + u); force 20-60
+    %MVC, trial id 0-29, per-subject centered skill and dancing habit."""
+    import pandas as pd
+    rng = np.random.default_rng(seed)
+    n = STAT_SUBJECTS * STAT_TRIALS
+    subject = np.repeat(np.arange(STAT_SUBJECTS), STAT_TRIALS)
+    trial = np.tile(np.arange(STAT_TRIALS), STAT_SUBJECTS)
+    category = np.array(STAT_CATEGORIES)[trial % len(STAT_CATEGORIES)]
+    happy = (category == "Happy").astype(float)
+    skill = rng.integers(0, 8, STAT_SUBJECTS).astype(float)
+    dancing = rng.integers(0, 8, STAT_SUBJECTS).astype(float)
+    u = rng.normal(0.0, 0.5, n)
+    dv = (0.9 + PLANTED_EFFECT * happy + 0.01 * u
+          + rng.normal(0.0, STAT_SUBJECT_SD, STAT_SUBJECTS)[subject]
+          + rng.normal(0.0, STAT_RESID_SD, n))
+    return pd.DataFrame({
+        "Subject ID": subject, "Trial ID": trial,
+        "Category or Silence": category,
+        "Music Listening": category != "Silence",
+        "Median Unscaled Force [% MVC]": rng.uniform(20.0, 60.0, n),
+        "Musical skill [0-7]_centered": (skill - skill.mean())[subject],
+        "Dancing habit [0-7]_centered": (dancing - dancing.mean())[subject],
+        STAT_MEDIATOR: 2.0 + 0.5 * happy + u, STAT_DV: dv})
+
+
+def reml_small_problem(rng):
+    """REML_SMALL responses of a Level-1-like design of the study's size
+    (p = 7: intercept, force, trial id, four sparse dummies): X, Y,
+    groups."""
+    n, G = STAT_SUBJECTS * STAT_TRIALS, STAT_SUBJECTS
+    groups = np.repeat(np.arange(G), STAT_TRIALS)
+    X = np.column_stack([np.ones(n), rng.uniform(20, 60, n),
+                         np.tile(np.arange(STAT_TRIALS), G),
+                         rng.random((n, 4)) < 0.2])
+    Y = (0.9 + 1e-4 * X[:, 1] + rng.normal(0, 0.02, (REML_SMALL, G))[:, groups]
+         + rng.normal(0, 0.015, (REML_SMALL, n)))
+    return X, Y, groups
+
+
+def level1_design(frame):
+    """The RQ-A Level-1 design of ``frame`` (p = 17 at the study's frame),
+    its column names and the subject ids, as ``run_power_analysis`` builds
+    them."""
+    from mba_tpu_torch.pipeline import statistical_modelling as TStat
+    from mba_tpu_torch.workflows import \
+        statistics_RQ_A_omnibus_testing_workflow as TRQA
+    level = TRQA.fetch_level_definitions(False)[1]
+    design, names = TStat.build_design_matrix(
+        frame, level["condition_vars"], level["explanatory_vars"],
+        level["moderation_pairs"], level["reference_categories"])
+    return design, names, frame["Subject ID"].to_numpy()
+
+
+def check_statistics_small_against_cpu(device) -> dict:
+    """(a) The device parts small, on the card against the CPU: the REML
+    grid at S = REML_SMALL responses of a Level-1-like design; the
+    weighted solver at B = WEIGHTED_SMALL with zero-weight rows; the
+    sign matrices of the CBPA contrasts' null (CBPA_SEED, CBPA_CHUNK) bit
+    for bit; the cluster null at CLUSTER_SMALL permutations (the sign
+    matrices bit for bit, H0 within H0_RTOL/H0_ATOL) and in exact mode
+    (p equal)."""
+    from mba_tpu_torch.models import lme as TL
+    from mba_tpu_torch.ops import permutation as TPerm
+    rng = np.random.default_rng(5)
+    X, Y, groups = reml_small_problem(rng)
+    n, G = X.shape[0], STAT_SUBJECTS
+    got = TL.batched_lme_pvalues(X, Y, groups, device=device)
+    ref = TL.batched_lme_pvalues(X, Y, groups, device="cpu")
+    beta_err = float(np.max(np.abs(got["beta"] - ref["beta"]) / ref["bse"]))
+    se_err = float(np.max(np.abs(got["bse"] / ref["bse"] - 1)))
+    scale_err = float(np.max(np.abs(got["scale"] / ref["scale"] - 1)))
+    _require(beta_err <= REML_BETA_SE and se_err <= REML_RTOL
+             and scale_err <= REML_RTOL,
+             f"REML card vs CPU: beta {beta_err:.2e} SE, bse {se_err:.2e}, "
+             f"scale {scale_err:.2e}")
+
+    B, m = WEIGHTED_SMALL, STAT_TRIALS
+    gidx = np.repeat(np.arange(G), m)
+    x = (rng.random((B, n)) < 0.5).astype(np.float32)
+    med = (0.5 * x + rng.normal(0, 0.5, (B, n))).astype(np.float32)
+    y = (0.9 + 0.01 * x + 0.02 * med + rng.normal(0, 0.02, (B, n))
+         + rng.normal(0, 0.01, (B, G))[:, gidx]).astype(np.float32)
+    w = (rng.random((B, n)) > 0.2).astype(np.float32)   # absent rows
+    Xb = np.stack([np.ones_like(x), x, med], 2)
+    beta = [TL._batched_reml_weighted(
+        *(torch.from_numpy(a).to(dev) for a in (Xb, y, w,
+                                               gidx.astype(np.int64))),
+        n_groups=G).cpu().numpy() for dev in (device, "cpu")]
+    w_err = float(np.max(np.abs(beta[0] - beta[1]) / beta[1].std(0)))
+    _require(w_err <= WEIGHTED_SD_FRAC,
+             f"weighted REML card vs CPU: {w_err:.2e} of β's spread")
+
+    Xc = rng.standard_normal((G, 10, len(CMC_EEG_CHANNEL_SUBSET))).astype(
+        np.float32)
+    Xc[:, 3:7, :4] += 1.0
+    adj = TPerm.combine_adjacency(10, TPerm.delaunay_channel_adjacency(
+        CMC_EEG_CHANNEL_SUBSET))
+    for seed, n_perm, chunk in ((3, CLUSTER_SMALL, 64),
+                                (CBPA_SEED, CBPA_PERMUTATIONS, CBPA_CHUNK)):
+        signs = [TPerm._draw_signs(seed, -(-n_perm // chunk), chunk, G,
+                                   dev).cpu() for dev in (device, "cpu")]
+        _require(torch.equal(*signs), f"cluster null: the card's sign "
+                 f"matrices differ from the CPU's ({n_perm} permutations "
+                 f"in chunks of {chunk})")
+    res = [TPerm.cluster_permutation_1samp_test(
+        Xc, adj, n_permutations=CLUSTER_SMALL, tail=0, seed=3,
+        permutation_chunk=64, device=dev) for dev in (device, "cpu")]
+    h0_err = float(np.max(np.abs(res[0][3] - res[1][3])
+                          - H0_RTOL * np.abs(res[1][3])))
+    _require(h0_err <= H0_ATOL,
+             f"cluster null card vs CPU: H0 {h0_err:.2e} over rtol")
+    n_exact = int(np.log2(CLUSTER_SMALL))
+    exact = [TPerm.cluster_permutation_1samp_test(
+        Xc[:n_exact], adj, n_permutations=CLUSTER_SMALL, tail=1,
+        device=dev) for dev in (device, "cpu")]
+    _require(len(exact[0][3]) == CLUSTER_SMALL
+             and np.array_equal(exact[0][2], exact[1][2]),
+             f"exact cluster p card vs CPU: {exact[0][2]} vs {exact[1][2]}")
+    return {"reml_S": REML_SMALL, "reml_beta_err_se": beta_err,
+            "reml_bse_rel": se_err, "reml_scale_rel": scale_err,
+            "weighted_B": B, "weighted_err_sd": w_err,
+            "cluster_signs_bitwise_equal": [[3, CLUSTER_SMALL, 64],
+                                            [CBPA_SEED, CBPA_PERMUTATIONS,
+                                             CBPA_CHUNK]],
+            "cluster_h0_err_over_rtol": h0_err,
+            "cluster_p": [res[0][2].tolist(), res[1][2].tolist()],
+            "exact_cluster_p": exact[0][2].tolist()}
+
+
+def run_power_grid(frame, device) -> dict:
+    """(b) The Level-1 fits on the host, then ``run_power_analysis`` on
+    the card as tools/bench_pipeline.py:727-733 calls it, with the grid's
+    seconds split into host draws, upload, each block's solve and
+    download; then the first two jobs again on the CPU at the same seed.
+    The planted effect's power at multiplier 1.0 must reach
+    PLANTED_POWER_MIN, and the within-subject parameter whose fitted |z|
+    is smallest (a near-null covariate) must reject at a rate inside
+    NEAR_NULL_RATE."""
+    import pandas as pd
+    from mba_tpu_torch.pipeline import statistical_modelling as TStat
+    from mba_tpu_torch.workflows import \
+        statistics_RQ_A_omnibus_testing_workflow as TRQA
+    level_defs = TRQA.fetch_level_definitions
+    with tempfile.TemporaryDirectory() as tmp:
+        csv = Path(tmp) / "2024-01-01 10_00_00 Combined Statistics 1seg.csv"
+        frame.to_csv(csv, index=False)
+        frame = pd.read_csv(csv)        # what run_power_analysis reads
+        t0 = time.perf_counter()
+        results, diags = [], []
+        TStat.run_model_levels(frame, level_defs(False), STAT_DV, "H1",
+                               1, results, diags, levels_to_include=[1],
+                               verbose=False)
+        fits_sec = time.perf_counter() - t0
+        full = pd.DataFrame(results)
+        full["N. Segments"] = 1
+        cfg = TStat.PowerConfig(STAT_DV, comp_lvl=1, n_segments=1,
+                                target_parameters=[],
+                                n_simulations=POWER_SIMULATIONS)
+        diag = {}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        mde, curve = TStat.run_power_analysis(
+            [cfg], full, Path(tmp), Path(tmp), level_defs, device=device,
+            diagnostics=diag)
+        power_sec = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    lme = full[(full["Model_Type"] == "LME")
+               & ~full["Parameter"].str.startswith("__")].set_index(
+                   "Parameter")
+    z = (lme["Coefficient"] / lme["SE_unadjusted"]).abs()
+    between = ("Intercept", "Q('Musical skill [0-7]_centered')",
+               "Q('Dancing habit [0-7]_centered')", HAPPY)
+    near_null = z.drop(list(between), errors="ignore").idxmin()
+    at_one = curve[curve["Effect_Multiplier"] == 1.0].set_index(
+        "Parameter")["Power"]
+    planted, null_rate = float(at_one[HAPPY]), float(at_one[near_null])
+    n_jobs, n_refits = diag["n_jobs"], diag["n_refits"]
+    nan_fraction = diag["n_nan_pvalues"] / n_refits
+    _require(n_jobs >= MIN_POWER_JOBS, f"power grid: {n_jobs} jobs")
+    _require(nan_fraction == 0.0, f"power grid: NaN fraction {nan_fraction}")
+    _require(planted >= PLANTED_POWER_MIN,
+             f"power grid: planted effect's power {planted}")
+    _require(NEAR_NULL_RATE[0] <= null_rate <= NEAR_NULL_RATE[1],
+             f"power grid: near-null {near_null} rejects at {null_rate}")
+
+    # the first two jobs again, on the CPU, from the same seed: their
+    # simulations are the first draws of the grid's shared generator
+    gen = TStat._extract_lme_params(full, STAT_DV, 1, 1)
+    design, names, subjects = level1_design(frame)
+    _, subj_idx = np.unique(subjects, return_inverse=True)
+    params = [q for q in gen["fixed_effects"] if q != "Intercept"]
+    jobs = [(params[0], mult) for mult in cfg.effect_multipliers[:2]]
+    t0 = time.perf_counter()
+    cpu = TStat._simulate_jobs_and_fit(
+        gen, design, names, subj_idx, jobs, POWER_SIMULATIONS, cfg.alpha,
+        np.random.default_rng(cfg.random_seed), device="cpu")
+    cpu_sec = time.perf_counter() - t0
+    card = curve.set_index(["Parameter", "Effect_Multiplier"])["Power"]
+    card = [float(card[job]) for job in jobs]
+    diff = max(abs(a - b) for a, b in zip(card, cpu))
+    _require(diff <= POWER_CPU_DIFF,
+             f"power grid card vs CPU: {card} vs {cpu}")
+    solve = diag["solve_sec"]
+    return {"jobs": n_jobs, "refits": n_refits,
+            "design_columns": design.shape[1], "fits_sec": fits_sec,
+            "power_sec": power_sec, "host_draw_sec": diag["host_draw_sec"],
+            "upload_sec": diag["upload_sec"], "solve_sec_per_block": solve,
+            "solve_sec": sum(solve), "download_sec": diag["download_sec"],
+            "refits_per_sec": n_refits / power_sec,
+            "refits_per_solve_sec": n_refits / sum(solve),
+            "nan_fraction": nan_fraction, "peak_mem_gb": peak_gb,
+            "planted": HAPPY, "planted_fitted_z": float(z[HAPPY]),
+            "planted_power": planted, "near_null": near_null,
+            "near_null_fitted_z": float(z[near_null]),
+            "near_null_rate": null_rate, "cpu_jobs": [list(j) for j in jobs],
+            "card_powers": card, "cpu_powers": cpu, "cpu_sec": cpu_sec,
+            "mde_rows": len(mde)}
+
+
+def run_mediation_bootstrap(frame, device) -> dict:
+    """(c) The Happy-vs-Silence GSR mediation of the DV: the paths on the
+    host, the MEDIATION_RESAMPLES-resample bootstrap on the card, against
+    the same resamples on the CPU: CI bounds and the median within
+    WEIGHTED_SD_FRAC of the CI's width, the bootstrap p within two
+    resamples."""
+    from mba_tpu_torch.models import mediation as TM
+    fit = TM.fit_mediation_model(frame, "Category or Silence",
+                                 ("Happy", "Silence"), STAT_MEDIATOR, STAT_DV)
+    _require(fit["status"] == "fitted", f"mediation fit: {fit['status']}")
+    t0 = time.perf_counter()
+    got = TM.bootstrap_indirect_effect(fit, MEDIATION_RESAMPLES,
+                                       device=device)
+    sec = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = TM.bootstrap_indirect_effect(fit, MEDIATION_RESAMPLES,
+                                       device="cpu")
+    cpu_sec = time.perf_counter() - t0
+    width = ref["ci_width"]
+    err = max(abs(got[k] - ref[k]) for k in
+              ("ci_lower", "ci_upper", "bootstrap_median_indirect")) / width
+    _require(got["bootstrap_status"] == "computed"
+             and got["bootstrap_success"] == ref["bootstrap_success"]
+             and err <= WEIGHTED_SD_FRAC
+             and abs(got["bootstrap_p"] - ref["bootstrap_p"])
+             <= 2 / MEDIATION_RESAMPLES,
+             f"mediation bootstrap card vs CPU: {got} vs {ref}")
+    return {"resamples": MEDIATION_RESAMPLES, "n_obs": fit["n_obs"],
+            "indirect": fit["indirect_effect"], "bootstrap_sec": sec,
+            "cpu_sec": cpu_sec, "ci": [got["ci_lower"], got["ci_upper"]],
+            "bootstrap_p": got["bootstrap_p"], "err_over_ci_width": err}
+
+
+def run_cbpa_contrasts(device) -> list:
+    """(c) The two CBPA contrasts of tools/bench_pipeline.py:675-692, each
+    a planted cluster (+1.2 over 10 time bins × 4 channels) in unit noise,
+    12 subjects × 40 time bins, at CBPA_PERMUTATIONS sign-flip
+    permutations: the 11-channel motor subset, tail 1, and all 64
+    channels, tail 0.  Each must find a cluster with p < 0.05."""
+    from mba_tpu_torch.channel_layout import EEG_CHANNELS
+    from mba_tpu_torch.ops import permutation as TPerm
+    out = []
+    rng = np.random.default_rng(21)
+    for channels, tail in ((CMC_EEG_CHANNEL_SUBSET, 1), (EEG_CHANNELS, 0)):
+        X = rng.standard_normal((STAT_SUBJECTS, CBPA_TIMES,
+                                 len(channels))).astype(np.float32)
+        X[:, 15:25, :4] += 1.2
+        adj = TPerm.combine_adjacency(
+            CBPA_TIMES, TPerm.delaunay_channel_adjacency(list(channels)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, clusters, pv, H0 = TPerm.cluster_permutation_1samp_test(
+            X, adj, n_permutations=CBPA_PERMUTATIONS, tail=tail,
+            seed=CBPA_SEED, permutation_chunk=CBPA_CHUNK, device=device)
+        sec = time.perf_counter() - t0
+        _require(len(pv) and pv.min() < 0.05,
+                 f"CBPA {len(channels)} channels: no cluster with p < 0.05 "
+                 f"({pv})")
+        _require(len(H0) == CBPA_PERMUTATIONS + 1
+                 and bool(np.isfinite(H0).all()),
+                 f"CBPA {len(channels)} channels: H0 {H0.shape}")
+        out.append({"nodes": CBPA_TIMES * len(channels), "tail": tail,
+                    "permutations": CBPA_PERMUTATIONS, "null_sec": sec,
+                    "clusters": len(clusters), "min_p": float(pv.min())})
+    return out
+
+
 def reset_launches() -> None:
     cuda_msc.msc_jackknife.launches = 0
     cuda_null.null_tile.launches = 0
@@ -1519,11 +1859,28 @@ def main() -> int:
              "threefry")
     log(json.dumps({"phase": "phase_null_config4", "card": card, **phase,
                     "launches": n_phase}))
+    torch.cuda.empty_cache()
+
+    small = check_statistics_small_against_cpu(device)
+    frame = make_statistics_frame()
+    reset_launches()
+    t0 = time.perf_counter()
+    power = run_power_grid(frame, device)
+    mediation = run_mediation_bootstrap(frame, device)
+    cbpa = run_cbpa_contrasts(device)
+    n_stat = launches()
+    _require(n_stat["threefry"] > 0, "the statistics path did not launch "
+             "threefry")
+    sec = time.perf_counter() - t0
+    log(json.dumps({"phase": "statistics", "card": card, "sec": sec,
+                    "small_against_cpu": small, "power_grid": power,
+                    "mediation": mediation, "cbpa": cbpa,
+                    "launches": n_stat}))
 
     paths = {"cmc": n_cmc, "null_gram": n_gram, "null_pallas": n_pallas,
              "null_per_window": n_pw, "fft_null": n_fft,
              "feature_extraction": n_feat, "preprocessing": n_pre,
-             "phase_null": n_phase}
+             "phase_null": n_phase, "statistics": n_stat}
     by_path = lambda k: {p: n[k] for p, n in paths.items()}
     kernels = [
         {"name": "msc_jackknife", "route": "cuda",

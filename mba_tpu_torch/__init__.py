@@ -24,10 +24,19 @@ The slices so far:
   parts of ``pipeline.data_integration``, ``data_analysis`` and
   ``cbpa``);
 - ``ops.surrogate``: the phase-randomised coherence null
-  ``msc_phase_randomized_null`` and the host fault injection.
+  ``msc_phase_randomized_null`` and the host fault injection;
+- the preprocessing stage, ``pipeline.preprocessing`` and its workflow
+  over ``ops.filters``, ``ops.wavelet`` and ``ops.ica``;
+- the statistics stage: ``models`` (host OLS/REML fits, formula, FDR; the
+  batched REML refits ``models.lme.batched_lme_pvalues`` and the
+  mediation bootstrap on the card), ``pipeline.statistical_modelling``
+  (the power grid on the card), ``ops.permutation`` (the sign-flip
+  cluster-permutation null on the card) and the RQ-A/RQ-B omnibus and
+  mediation workflows.
 
-The package imports torch, numpy and scipy (pandas only where an
-experiment log is read), never ``jax`` or ``mba_tpu``.  Public functions
+The package imports torch, numpy and scipy (pandas only where a frame or
+an experiment log is read, matplotlib only where a figure is drawn),
+never ``jax`` or ``mba_tpu``.  Public functions
 keep the JAX package's signatures, layouts (samples on axis 0) and result
 dictionaries, and return numpy arrays, or a tensor on the device where
 the JAX function returns a device array.  Each entry point runs on the

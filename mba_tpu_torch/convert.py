@@ -3,6 +3,11 @@
 The system has no trained weights.  Its state is the DPSS taper set, the
 rotation-null coefficients and a fitted ICA; each crosses as numpy
 arrays in the JAX package's layouts.
+
+The statistics stage needs no function here: its inputs are frames and
+arrays that cross as numpy/pandas, and its fitted state (the generative
+parameters of the power grid, ``statistical_modelling.
+_extract_lme_params``' dict) is plain floats.
 """
 from __future__ import annotations
 

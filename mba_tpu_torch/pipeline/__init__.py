@@ -1,2 +1,4 @@
 """The pipeline layer of the port (``mba_tpu/pipeline``), one slice at a
-time: ``signal_features`` and the host helpers it needs."""
+time: ``signal_features``, ``preprocessing``, ``statistical_modelling``,
+the omnibus workflow's plots in ``visualizations``, and the host helpers
+they need."""

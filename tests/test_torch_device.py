@@ -12,9 +12,16 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import scipy.sparse
 import torch
 
 from mba_tpu_torch._device import entry_device, resolve_device
+from mba_tpu_torch.models import lme as TL
+from mba_tpu_torch.models import mediation as TM
+from mba_tpu_torch.ops import permutation as TPerm
+from mba_tpu_torch.pipeline import statistical_modelling as TStat
+from mba_tpu_torch.workflows import \
+    statistics_RQ_A_mediation_analysis_workflow as TMW
 from mba_tpu_torch.ops import cohort_null as TN
 from mba_tpu_torch.ops import coherence as TC
 from mba_tpu_torch.ops import filters as TFi
@@ -71,6 +78,13 @@ def _calls():
     tapers = filtered_tapers(256, 3, 0.9)
     null_kw = dict(window_length_sec=2.0, band=(8.0, 60.0),
                    n_surrogates=40, surrogate_chunk=20)
+    rng = np.random.default_rng(0)
+    groups = np.repeat(np.arange(4), 5)
+    X = np.column_stack([np.ones(20), rng.standard_normal(20)])
+    Y = rng.standard_normal((8, 20))
+    contrast = rng.standard_normal((6, 5, 3))
+    chain = scipy.sparse.csr_matrix(np.eye(3, k=1, dtype=bool)
+                                    + np.eye(3, k=-1, dtype=bool))
     return {
         "multitaper_msc": lambda **d: TC.multitaper_msc(
             eeg, emg, 256, window_length_sec=1.0, **d),
@@ -106,6 +120,18 @@ def _calls():
             2, max_iter=5, **d).fit(eeg),
         "BiosignalPreprocessor": lambda **d: TP.BiosignalPreprocessor(
             eeg, 256, 'eeg', n_ica_components=None, **d).np_output_data,
+        "batched_lme_pvalues": lambda **d: TL.batched_lme_pvalues(
+            X, Y, groups, **d),
+        "run_power_analysis": lambda **d: TStat.run_power_analysis(
+            [], None, ".", ".", None, **d),
+        "bootstrap_indirect_effect": lambda **d:
+            TM.bootstrap_indirect_effect({"status": "not_fitted"}, **d),
+        "run_mediation_analysis": lambda **d: TMW.run_mediation_analysis(
+            ".", None, ".", **d),
+        "cluster_permutation_1samp_test": lambda **d:
+            TPerm.cluster_permutation_1samp_test(
+                contrast, TPerm.combine_adjacency(5, chain),
+                n_permutations=40, **d),
     }
 
 
@@ -116,7 +142,9 @@ ENTRY_POINTS = ["multitaper_msc", "cohort_msc_rotation_null",
                 "jackknife_coherence_and_ci",
                 "compute_task_wise_aggregated_cmc", "bandpass_filter",
                 "notch_filter", "wavelet_denoise", "InfomaxICA.fit",
-                "BiosignalPreprocessor"]
+                "BiosignalPreprocessor", "batched_lme_pvalues",
+                "run_power_analysis", "bootstrap_indirect_effect",
+                "run_mediation_analysis", "cluster_permutation_1samp_test"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -134,3 +162,15 @@ def test_the_cpu_runs_when_asked_for(name, monkeypatch):
     values = (res["coherence_raw"] if name == "multitaper_msc"
               else res["max_stat"])
     assert values.size and np.isfinite(values).all()
+
+
+def test_the_statistics_entry_points_run_on_the_cpu_when_asked_for(
+        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = _calls()
+    assert np.isfinite(calls["batched_lme_pvalues"](device="cpu")[
+        "pvalues"]).all()
+    assert calls["bootstrap_indirect_effect"](device="cpu")[
+        "bootstrap_status"] == "not_fitted"
+    H0 = calls["cluster_permutation_1samp_test"](device="cpu")[3]
+    assert len(H0) == 41 and np.isfinite(H0).all()

@@ -34,6 +34,8 @@ from mba_tpu_torch.ops import surrogate as TSu
 from mba_tpu_torch.ops.dpss import filtered_tapers
 from mba_tpu_torch.ops.framing import (frame_signal, resample_linear,
                                        window_grid)
+from mba_tpu_torch.models import lme as TL
+from mba_tpu_torch.ops import permutation as TPerm
 from mba_tpu_torch.pipeline import signal_features as TF
 from mba_tpu_torch.pipeline.cbpa import CMC_EEG_CHANNEL_SUBSET
 
@@ -66,7 +68,8 @@ def _spectra(seed, W, ws, nE, nM, device="cpu", nw=3):
 
 def test_package_imports_neither_jax_nor_mba_tpu():
     """In a fresh interpreter: the pytest process has JAX loaded already
-    (tests/conftest.py), so only a subprocess can tell."""
+    (tests/conftest.py), so only a subprocess can tell.  matplotlib is not
+    loaded either: the port imports it only to draw."""
     names = _module_names()
     assert {"mba_tpu_torch.ops.cuda_msc", "mba_tpu_torch.ops.cuda_null",
             "mba_tpu_torch.ops.cuda_coeffs",
@@ -84,16 +87,47 @@ def test_package_imports_neither_jax_nor_mba_tpu():
             "mba_tpu_torch.ops.ic_classify", "mba_tpu_torch.ops.ica",
             "mba_tpu_torch.pipeline.preprocessing",
             "mba_tpu_torch.workflows.preprocessing_workflow",
-            "mba_tpu_torch.convert"} <= set(names)
+            "mba_tpu_torch.convert",
+            "mba_tpu_torch.models.fdr", "mba_tpu_torch.models.ols",
+            "mba_tpu_torch.models.formula", "mba_tpu_torch.models.lme",
+            "mba_tpu_torch.models.mediation",
+            "mba_tpu_torch.pipeline.statistical_modelling",
+            "mba_tpu_torch.ops.permutation",
+            "mba_tpu_torch.pipeline.visualizations",
+            "mba_tpu_torch.workflows.statistics_RQ_A_omnibus_testing_workflow",
+            "mba_tpu_torch.workflows.statistics_RQ_B_omnibus_testing_workflow",
+            "mba_tpu_torch.workflows."
+            "statistics_RQ_A_mediation_analysis_workflow",
+            "mba_tpu_torch.workflows.paths"} <= set(names)
     code = (f"import importlib, sys\n"
             f"for name in {names!r}:\n"
             f"    importlib.import_module(name)\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0]\n"
-            f"             in ('jax', 'jaxlib', 'mba_tpu'))\n"
+            f"             in ('jax', 'jaxlib', 'mba_tpu', 'matplotlib'))\n"
             f"assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_plots_load_matplotlib_when_they_draw(tmp_path):
+    """In a fresh interpreter: the omnibus forest mosaic draws (Agg) and
+    saves a PNG, and only then is matplotlib loaded."""
+    code = ("import sys, pandas as pd\n"
+            "from mba_tpu_torch.pipeline import visualizations as V\n"
+            "assert 'matplotlib' not in sys.modules\n"
+            "df = pd.DataFrame({'Model_Type': ['LME'] * 2,\n"
+            "                   'Dependent_Variable': ['DV'] * 2,\n"
+            "                   'Parameter': ['Intercept', 'x'],\n"
+            "                   'Coefficient': [1.0, 0.5], 'SE': [0.1, 0.1],\n"
+            "                   'p_value_for_plot': [0.5, 0.01]})\n"
+            f"V.draw_forest_mosaic(df, save_dir={str(tmp_path)!r})\n"
+            "import matplotlib\n"
+            "assert matplotlib.get_backend().lower() == 'agg'\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert len(list(tmp_path.glob("*Forest Mosaic.png"))) == 1
 
 
 def test_importing_builds_nothing():
@@ -793,3 +827,74 @@ def test_ica_graph_epochs_on_card_match_cpu(cuda):
     assert got.timings_["capture_sec"] > 0
     c = np.abs(np.corrcoef(got.get_sources(x).T, ref.get_sources(x).T)[:3, 3:])
     assert c.max(axis=1).min() >= 0.999
+
+
+# ---- the statistics stage on the card --------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 300, TL._REML_BLOCK + 5])
+def test_reml_core_on_card_matches_cpu(cuda, S):
+    """The batched REML on the card against the CPU: β within 1e-2 of its
+    SE (chip_smoke.REML_BETA_SE: two float32 solves of such a design, as
+    the port and the JAX package are in tests/test_torch_models.py;
+    cuBLAS, MKL and the atomic group sums round differently), SE and
+    scale within rtol 2e-3; a block edge at S = 8 197."""
+    rng = np.random.default_rng(S)
+    n_subj, n_per = 12, 10
+    groups = np.repeat(np.arange(n_subj), n_per)
+    n = n_subj * n_per
+    X = np.column_stack([np.ones(n), rng.uniform(20, 60, n),
+                         np.tile(np.arange(n_per), n_subj),
+                         rng.random((n, 3)) < 0.3])
+    Y = (0.9 + 1e-4 * X[:, 1] + rng.normal(0, 0.02, (S, n_subj))[:, groups]
+         + rng.normal(0, 0.015, (S, n)))
+    got = TL.batched_lme_pvalues(X, Y, groups, device=cuda)
+    ref = TL.batched_lme_pvalues(X, Y, groups, device="cpu")
+    assert np.isfinite(got["pvalues"]).all()
+    assert np.max(np.abs(got["beta"] - ref["beta"]) / ref["bse"]) <= 1e-2
+    np.testing.assert_allclose(got["bse"], ref["bse"], rtol=2e-3)
+    np.testing.assert_allclose(got["scale"], ref["scale"], rtol=2e-3)
+
+
+@pytest.mark.cuda
+def test_weighted_reml_on_card_matches_cpu(cuda):
+    """The bootstrap's solver, B = 200 with 20 % absent rows: β within
+    1 % of β's spread over the resamples."""
+    rng = np.random.default_rng(1)
+    B, G, m = 200, 12, 12
+    gidx = np.repeat(np.arange(G), m)
+    x = (rng.random((B, G * m)) < 0.5).astype(np.float32)
+    y = (0.9 + 0.01 * x + rng.normal(0, 0.02, x.shape)
+         + rng.normal(0, 0.01, (B, G))[:, gidx]).astype(np.float32)
+    w = (rng.random(x.shape) > 0.2).astype(np.float32)
+    Xb = np.stack([np.ones_like(x), x], 2)
+    got, ref = (TL._batched_reml_weighted(
+        *(torch.from_numpy(a).to(dev) for a in (Xb, y, w,
+                                               gidx.astype(np.int64))),
+        n_groups=G).cpu().numpy() for dev in (cuda, "cpu"))
+    assert np.max(np.abs(got - ref) / ref.std(0)) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tail", [-1, 0, 1])
+def test_cluster_null_on_card_matches_cpu(cuda, tail):
+    """The sign matrices bit for bit (the threefry kernel), H0 within
+    rtol/atol 1e-4, and in exact mode the cluster p-values equal."""
+    rng = np.random.default_rng(tail + 5)
+    X = rng.standard_normal((12, 20, 11)).astype(np.float32)
+    X[:, 5:12, 2:6] += 1.2 * (tail or 1)
+    adj = TPerm.combine_adjacency(
+        20, TPerm.delaunay_channel_adjacency(CMC_EEG_CHANNEL_SUBSET))
+    before = cuda_prng.threefry_draw.launches
+    signs = TPerm._draw_signs(9, 3, 100, 12, cuda)
+    assert cuda_prng.threefry_draw.launches == before + 1
+    assert torch.equal(signs.cpu(), TPerm._draw_signs(9, 3, 100, 12, "cpu"))
+    got, ref = (TPerm.cluster_permutation_1samp_test(
+        X, adj, n_permutations=300, tail=tail, seed=9,
+        permutation_chunk=100, device=dev) for dev in (cuda, "cpu"))
+    np.testing.assert_allclose(got[3], ref[3], rtol=1e-4, atol=1e-4)
+    got, ref = (TPerm.cluster_permutation_1samp_test(
+        X[:8], adj, n_permutations=256, tail=tail, device=dev)
+        for dev in (cuda, "cpu"))
+    assert len(got[3]) == 256
+    np.testing.assert_array_equal(got[2], ref[2])
