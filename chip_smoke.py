@@ -72,7 +72,28 @@ result):
    contrasts (12 × 40 × 11 channels, tail 1; 12 × 40 × 64, tail 0) at
    1 024 permutations, each with a cluster at p < 0.05 and the threefry
    kernel launched;
-10. one JSON line describing the kernels: per kernel its launches on its
+10. the study pipeline of tools/bench_pipeline.py through the port's
+   entry points, with every launch count set to 0 before it and read
+   after (B1 and threefry must have launched), one JSON line of stage
+   seconds and gate values: s1, subject 0's two 64-channel EMG grids
+   (1 705 s at 2048 Hz, ``tools.synth_study``'s 30 trials of 45 s)
+   written to OTB4 archives and read back as ADC counts; s2, the
+   preprocessing workflow on its EEG (planted blinks, ECG, line and a
+   gated 16-28 Hz drive; ICA 25) and both grids, on the card; s3,
+   ``run_subject``: the log10 PSD, the task-wise CMC through B1 and the
+   enriched serial frame, then subject 0's band aggregates on the card;
+   subjects 1-11 as jittered copies of its artifacts; s4, the Combined
+   Statistics frames at 1, 2, 5 and 10 segments for 12 subjects; s5, the
+   RQ-A omnibus (14 DVs × 4 levels × 4 resolutions, FDR on levels 2-3),
+   the two CBPA contrasts assembled from the stored artifacts (1 024
+   permutations each, signs by threefry, the null on the card), the
+   LOSO influence and the 500-simulation power grid.  Gates G1-G4 of
+   tools/bench_pipeline.py:24-36: the music-trial beta CMC above the
+   Beta(K−2, K−2) threshold; the music-over-silence Fisher-z gap above
+   0.15 with one-sided Welch p < 1e-3; the Level-0 music effect on
+   ``CMC_Flexor_max_beta`` positive with p < 0.05; a Happy-vs-Silence
+   CMC cluster at p < 0.05;
+11. one JSON line describing the kernels: per kernel its launches on its
    main path (and on every path, ``launches_by_path``), its error
    against the plain version, CUDA-event times of the kernel and the
    plain version, its bound (the larger of the bytes it must move over
@@ -229,6 +250,14 @@ REML_SMALL, WEIGHTED_SMALL, CLUSTER_SMALL = 256, 200, 128
 REML_BETA_SE, REML_RTOL = 1e-2, 2e-3
 WEIGHTED_SD_FRAC = 1e-2
 H0_RTOL, H0_ATOL = 1e-4, 1e-4
+# the study pipeline (tools/bench_pipeline.py): s1-s3 on one subject of
+# tools/synth_study's study layout (30 trials of 45 s, 1 705 s at 2048 Hz),
+# s4-s5 on 12 subjects, the frames at 1, 2, 5 and 10 segments; G2's
+# Fisher-z gap and Welch p (tools/bench_pipeline.py:569); the planted
+# beta drive's band (:66)
+PIPE_SUBJECTS, PIPE_SEGMENTS = 12, (1, 2, 5, 10)
+PIPE_BETA = (16.0, 28.0)
+PIPE_Z_GAP, PIPE_WELCH_P = 0.15, 1e-3
 
 
 def log(msg: str) -> None:
@@ -1694,6 +1723,421 @@ def run_cbpa_contrasts(device) -> list:
     return out
 
 
+def synth_pipeline_subject(plan, fs, seed=0):
+    """The pipeline's recording, as tools/bench_pipeline.py:100-148 makes
+    it over the port's ``tools.synth_study`` plan (sample 0 at the log's
+    measurement start): mV-scale EEG (10 µV noise) with blinks, an ECG
+    train, a 50-Hz line and a PIPE_BETA drive under signed per-channel
+    gains, gated per trial (music 1.0, silence SILENCE_GAIN, rest 0); two
+    EMG grids in mV sharing the drive.  Returns (eeg, flexor, extensor),
+    float32 (samples, 64)."""
+    rng = np.random.default_rng(seed)
+    n = plan.n_samples
+    t = np.arange(n) / fs
+    spec = np.fft.rfft(rng.standard_normal(n))
+    f = np.fft.rfftfreq(n, 1 / fs)
+    spec[(f < PIPE_BETA[0]) | (f > PIPE_BETA[1])] = 0
+    drive = np.fft.irfft(spec, n=n).astype(np.float32)
+    drive /= drive.std() + 1e-12
+    drive *= plan.drive_gate(rng)
+    blink = np.zeros(n, np.float32)
+    w = int(0.3 * fs)
+    for onset in rng.integers(0, n - int(fs), 150):
+        blink[onset:onset + w] += np.hanning(w)[:len(blink[onset:onset + w])]
+    ecg = np.zeros(n, np.float32)
+    w = int(0.05 * fs)
+    for beat in np.arange(0, n, int(0.85 * fs)):
+        ecg[beat:beat + w] += np.hanning(w)[:len(ecg[beat:beat + w])] * 3
+    line = np.sin(2 * np.pi * 50.0 * t).astype(np.float32)
+    eeg = rng.standard_normal((n, N_EEG), dtype=np.float32) * 1e-2
+    gains = rng.uniform(0.3, 1.0, N_EEG) * rng.choice([-1.0, 1.0], N_EEG)
+    eeg += 5e-3 * drive[:, None] * gains[None, :].astype(np.float32)
+    front = np.zeros(N_EEG, np.float32)
+    front[:4] = [5e-2, 5e-2, 3e-2, 3e-2]
+    eeg += blink[:, None] * front[None, :]
+    eeg += ecg[:, None] * rng.uniform(1e-3, 4e-3, N_EEG)[None, :]
+    eeg += 2e-3 * line[:, None] * rng.uniform(0.5, 1.5, N_EEG)[None, :]
+
+    def emg_like(gain):
+        x = rng.standard_normal((n, N_EMG), dtype=np.float32) * 0.05
+        x += gain * drive[:, None] * rng.uniform(0.3, 1.0, N_EMG)[None, :]
+        x += 0.01 * line[:, None]
+        return x
+    return eeg, emg_like(0.03), emg_like(0.008)
+
+
+def write_replica_artifacts(feat_root, subject, psd_aggs, cmc_aggs,
+                            channel_suffix) -> None:
+    """tools/bench_pipeline.py:236-260: subject ``subject``'s lean
+    artifacts as a jittered copy of subject 0's band aggregates, CMC ×
+    a subject gain + noise (clipped to [0, 1]), log10 PSD + a subject
+    offset + noise."""
+    rng = np.random.default_rng(5000 + subject)
+    sub_dir = feat_root / f"subject_{subject:02}"
+    sub_dir.mkdir(parents=True, exist_ok=True)
+    for modality, (payload, tc, names, edges) in psd_aggs.items():
+        jit = payload + rng.normal(0, 0.10) \
+            + rng.normal(0, 0.03, payload.shape).astype(np.float32)
+        TF.save_band_aggregates(jit, tc, names, edges, "PSD", sub_dir,
+                                identifier_suffix=modality)
+    for muscle, (payload, tc, names, edges) in cmc_aggs.items():
+        a_s = rng.normal(1.0, 0.08)
+        jit = np.clip(payload * a_s + rng.normal(0, 0.01, payload.shape)
+                      .astype(np.float32), 0.0, 1.0)
+        TF.save_band_aggregates(
+            jit, tc, names, edges, "CMC", sub_dir,
+            identifier_suffix=f"{muscle} Trial-wise {channel_suffix}")
+
+
+class _StageClock:
+    """Wraps module functions so each call is timed on the host clock,
+    closed by ``torch.cuda.synchronize()``; ``restore`` puts them back.
+    Records seconds per name, one entry per call."""
+
+    def __init__(self):
+        self.sec: dict[str, list[float]] = {}
+        self._saved = []
+
+    def wrap(self, module, name, label=None):
+        fn = getattr(module, name)
+        label = label or name
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.sec.setdefault(label, []).append(time.perf_counter() - t0)
+            return out
+        self._saved.append((module, name, fn))
+        setattr(module, name, timed)
+
+    def restore(self):
+        for module, name, fn in reversed(self._saved):
+            setattr(module, name, fn)
+        self._saved.clear()
+
+
+def pipeline_cmc_gates(feat0, plan, fs) -> dict:
+    """G1 and G2 of tools/bench_pipeline.py:522-580 on subject 0's stored
+    task-wise flexor CMC: per window in each trial's derived task span
+    (half a window in from each end), the channel mean of the beta-band
+    peak; G1: its music mean above the Beta(K−2, K−2) independence
+    threshold; G2: music over silence on the Fisher-z scale by more than
+    PIPE_Z_GAP with a one-sided Welch p below PIPE_WELCH_P."""
+    from scipy import stats
+    coh, tc, fr = TF.fetch_stored_spectrograms(
+        feat0, "CMC", ["Flexor", "Channels_" + "_".join(
+            CMC_EEG_CHANNEL_SUBSET)], expected_n_channels=len(
+            CMC_EEG_CHANNEL_SUBSET))
+    K = filtered_tapers(int(WINDOW_SEC * fs), NW, 0.9).shape[0]
+    beta = (fr >= PIPE_BETA[0]) & (fr <= PIPE_BETA[1])
+
+    def peak_per_window(spans):
+        sel = np.zeros(len(tc), bool)
+        for t_s, t_e in spans:
+            sel |= (tc >= t_s + WINDOW_SEC / 2) & (tc <= t_e - WINDOW_SEC / 2)
+        peak = coh[np.ix_(sel, beta)].max(axis=1)
+        peak = peak.reshape(peak.shape[0], -1).mean(axis=1)
+        z = np.arctanh(np.sqrt(np.clip(peak, 0.0, 1.0 - 1e-7)))
+        return float(np.nanmean(peak)), z, int(sel.sum())
+
+    music, z_music, n_music = peak_per_window(
+        plan.signal_relative_spans("music"))
+    silence, z_sil, n_sil = peak_per_window(
+        plan.signal_relative_spans("silence"))
+    gap = float(np.nanmean(z_music) - np.nanmean(z_sil))
+    t_stat, p_one = stats.ttest_ind(z_music[~np.isnan(z_music)],
+                                    z_sil[~np.isnan(z_sil)],
+                                    equal_var=False, alternative="greater")
+    thresh = float(TC.cmc_independence_threshold(int(K)))
+    gates = {"g1_music_cmc_beta": music, "g1_beta_threshold_K": int(K),
+             "g1_beta_threshold": thresh, "g2_silence_cmc_beta": silence,
+             "g2_fisher_z_gap": gap, "g2_welch_t": float(t_stat),
+             "g2_welch_p_one_sided": float(p_one),
+             "g2_n_windows": [n_music, n_sil]}
+    _require(music > thresh, f"G1: music-trial beta CMC {music:.4f} is not "
+             f"above the Beta(K-2, K-2) threshold {thresh:.4f} (K={K})")
+    _require(gap > PIPE_Z_GAP and p_one < PIPE_WELCH_P,
+             f"G2: Fisher-z gap {gap:.4f}, Welch p {p_one:.3g} "
+             f"(n={n_music}/{n_sil})")
+    return gates
+
+
+def run_pipeline(device) -> dict:
+    """The study pipeline of tools/bench_pipeline.py through the port's
+    entry points: s1-s3 on one subject at study scale, s4-s5 on a
+    12-subject tree (module docstring, phase 10).  Each stage is timed on
+    the host clock after ``torch.cuda.synchronize()``; G1-G4 must hold."""
+    import shutil
+    import pandas as pd
+    from mba_tpu_torch.io.otb4 import read_otb4, write_otb4
+    from mba_tpu_torch.pipeline import cbpa as TCB
+    from mba_tpu_torch.pipeline import statistical_modelling as TStat
+    from mba_tpu_torch.tools import synth_study as S
+    from mba_tpu_torch.utils import file_management as filemgmt
+    from mba_tpu_torch.workflows import \
+        statistics_data_preparation_workflow as TSD
+    from mba_tpu_torch.workflows import \
+        statistics_RQ_A_omnibus_testing_workflow as TA
+    from mba_tpu_torch.workflows import \
+        subject_feature_extraction_workflow as TSF
+    from mba_tpu_torch.workflows.paths import StudyPaths
+
+    stages, detail = {}, {}
+
+    def tick():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    t0 = tick()
+    plan = S.TrialPlan()
+    fs = S.FS
+    eeg, emg1, emg2 = synth_pipeline_subject(plan, fs)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_pipeline_"))
+    paths = StudyPaths(work)
+    exp_root, feat_root = paths.experiment_data, paths.feature_data
+    feat0 = paths.subject_feature_dir(0)
+    feat0.mkdir(parents=True)
+    for subject in range(PIPE_SUBJECTS):
+        S.write_subject_tree(exp_root, subject, plan,
+                             write_raw_serial=(subject == 0))
+    lookup = S.write_music_lookup(paths.song_characteristics, plan)
+    stages["synthesis_sec"] = tick() - t0
+    detail["recording_sec"] = plan.rec_sec
+    detail["samples"] = plan.n_samples
+    clock = _StageClock()
+    try:
+        # s1: the EMG grids through an OTB4 archive (:312-323)
+        grids = {}
+        for key, emg in (("emg_1_flexor", emg1), ("emg_2_extensor", emg2)):
+            write_otb4(work / f"{key}.otb4", emg.T, fs)
+        del emg1, emg2
+        t0 = tick()
+        for key in ("emg_1_flexor", "emg_2_extensor"):
+            parsed = read_otb4(work / f"{key}.otb4", raw_counts=True)
+            grids[key] = (parsed["signals"][0][1].T,
+                          parsed["mv_per_count"][0])
+        stages["s1_otb4_import_sec"] = tick() - t0
+        _require(all(c.dtype == np.int16 and c.shape == (plan.n_samples,
+                                                         N_EMG)
+                     for c, _ in grids.values()), "s1: OTB4 counts")
+
+        # s2: the preprocessing workflow on the EEG and both grids, in mV
+        # (tools/bench_pipeline.py:335-417: 3-mV amplitude rule, ICA 25
+        # on the EEG, no Laplacian on the grids), every stage on the card
+        t0 = tick()
+        np.save(feat0 / filemgmt.file_title(f"Raw eeg {N_EEG}ch", ".npy"),
+                eeg)
+        for key, (counts, mv) in grids.items():
+            np.save(feat0 / filemgmt.file_title(f"Raw {key} {N_EMG}ch",
+                                                ".npy"),
+                    counts.astype(np.float32) * mv[None, :])
+        del eeg, grids
+        stages["s2_raw_save_sec"] = tick() - t0
+        t0 = tick()
+        prep = TPW.preprocess_subject_modality(
+            0, "eeg", feat0, sampling_freq=int(fs), device=device,
+            device_resident=True, amplitude_rejection_threshold=3.0)
+        ica = prep.ica_result
+        detail["s2_ica"] = {"n_iter": ica.n_iter_, "max_iter": ica.max_iter,
+                            "excluded": list(ica.exclude),
+                            "epochs_sec": ica.timings_.get("epochs_sec"),
+                            "bad_channels": prep.bad_channels}
+        del prep, ica
+        torch.cuda.empty_cache()
+        stages["s2_eeg_sec"] = tick() - t0
+        t0 = tick()
+        for key in ("emg_1_flexor", "emg_2_extensor"):
+            prep = TPW.preprocess_subject_modality(
+                0, key, feat0, sampling_freq=int(fs), device=device,
+                device_resident=True, amplitude_rejection_threshold=3.0,
+                laplacian_filter_neighbor_radius=None)
+            detail[f"s2_{key}_bad_channels"] = prep.bad_channels
+            del prep
+        torch.cuda.empty_cache()
+        stages["s2_emg_sec"] = tick() - t0
+
+        # s3: run_subject (PSD, task-wise CMC through B1, serial frame),
+        # then subject 0's band aggregates on the card
+        for name in ("extract_psd_features", "extract_cmc_features",
+                     "build_enriched_serial_frame"):
+            clock.wrap(TSF, name)
+        t0 = tick()
+        TSF.run_subject(0, paths, sampling_freq=fs, device=device)
+        stages["s3_run_subject_sec"] = tick() - t0
+        clock.restore()
+        detail["s3_split_sec"] = {k: v[0] for k, v in clock.sec.items()}
+        t0 = tick()
+        psd_aggs, cmc_aggs = {}, {}
+        for modality in ("eeg", "emg_1_flexor", "emg_2_extensor"):
+            spec, tc, fr = TF.fetch_stored_spectrograms(feat0, "PSD",
+                                                        modality)
+            payload, names, edges = TF.band_aggregate_spectrogram(
+                torch.from_numpy(spec).to(device), fr)
+            payload = payload.cpu().numpy()
+            TF.save_band_aggregates(payload, tc, names, edges, "PSD", feat0,
+                                    identifier_suffix=modality)
+            psd_aggs[modality] = (payload, tc, names, edges)
+            detail[f"s3_psd_{modality}_shape"] = list(spec.shape)
+            del spec
+        suffix = "Channels_" + "_".join(CMC_EEG_CHANNEL_SUBSET)
+        for muscle in ("Flexor", "Extensor"):
+            coh, tc, fr = TF.fetch_stored_spectrograms(feat0, "CMC",
+                                                       [muscle, suffix])
+            payload, names, edges = TF.band_aggregate_spectrogram(
+                torch.from_numpy(coh).to(device), fr)
+            payload = payload.cpu().numpy()
+            TF.save_band_aggregates(
+                payload, tc, names, edges, "CMC", feat0,
+                identifier_suffix=f"{muscle} Trial-wise {suffix}")
+            cmc_aggs[muscle] = (payload, tc, names, edges)
+            detail[f"s3_cmc_{muscle}_shape"] = list(coh.shape)
+        stages["s3_band_aggregates_sec"] = tick() - t0
+        gates = pipeline_cmc_gates(feat0, plan, fs)
+
+        # subjects 1-11: jittered copies of subject 0's artifacts and
+        # serial frame (tools/bench_pipeline.py:584-597)
+        t0 = tick()
+        serial0 = filemgmt.most_recent_file(
+            paths.subject_experiment_dir(0) / "serial_measurements", ".csv",
+            ["Enriched Serial Frame"])
+        serial0 = pd.read_csv(serial0, index_col=0)
+        for subject in range(1, PIPE_SUBJECTS):
+            write_replica_artifacts(feat_root, subject, psd_aggs, cmc_aggs,
+                                    suffix)
+            rng = np.random.default_rng(6000 + subject)
+            rep = serial0.copy()
+            rep["bpm"] = rep["bpm"] * rng.normal(1.0, 0.05)
+            rep["hrv"] = rep["hrv"] * rng.normal(1.0, 0.1)
+            rep["gsr"] = rep["gsr"] + rng.normal(0, 0.2)
+            rep.to_csv(paths.subject_experiment_dir(subject)
+                       / "serial_measurements"
+                       / filemgmt.file_title("Enriched Serial Frame", ".csv"))
+        del serial0, rep, psd_aggs, cmc_aggs
+        stages["synthesis_replicas_sec"] = tick() - t0
+
+        # s4: the Combined Statistics frames at four resolutions, one
+        # input cache (:598-613)
+        t0 = tick()
+        cache: dict = {}
+        frames = {n: TSD.build_combined_statistics_frame(
+            list(range(PIPE_SUBJECTS)), exp_root, feat_root, n,
+            music_lookup_table_path=lookup, input_cache=cache)
+            for n in PIPE_SEGMENTS}
+        del cache
+        stages["s4_frames_sec"] = tick() - t0
+        n_trials = len(plan.trials)
+        for n, frame in frames.items():
+            dvs = [c for c in frame.columns if c.startswith(("CMC_", "PSD_"))]
+            _require(len(frame) == PIPE_SUBJECTS * n_trials * n
+                     and len(dvs) == 14
+                     and bool(np.isfinite(frame[dvs].to_numpy(float)).all()),
+                     f"s4: {n}seg frame {frame.shape}, {len(dvs)} DVs")
+            _require(frame["Median_Heart_Rate"].notna().all()
+                     and frame["RMS_Accuracy"].notna().any(),
+                     f"s4: {n}seg serial/accuracy columns empty")
+        detail["s4_rows"] = {str(n): len(f) for n, f in frames.items()}
+
+        # s5: the omnibus at the reference's breadth (:634-638)
+        out_dir = work / "stats_out"
+        t0 = tick()
+        combined = TA.run_omnibus(feat_root, out_dir,
+                                  n_within_trial_segments_list=list(
+                                      PIPE_SEGMENTS),
+                                  hypotheses=TA.RQA_HYPOTHESES,
+                                  fdr_levels=(2, 3),
+                                  make_forest_mosaics=False)
+        stages["s5_omnibus_sec"] = tick() - t0
+        detail["s5_omnibus_models"] = int(combined[
+            ["Hypothesis", "Comparison_Level", "N. Segments",
+             "Model_Type"]].drop_duplicates().shape[0])
+        detail["s5_omnibus_rows"] = len(combined)
+        lvl0 = combined[
+            (combined["Hypothesis"] == "H1: Flexor Beta Peak CMC")
+            & combined["Comparison_Level"].astype(str).str.startswith(
+                "Level 0")
+            & (combined["N. Segments"] == 1)
+            & (combined["Model_Type"] == "LME")
+            & combined["Parameter"].astype(str).str.contains(
+                "Music Listening")
+            & ~combined["Parameter"].astype(str).str.contains(":")]
+        _require(len(lvl0) == 1, f"G3: {len(lvl0)} Level-0 rows")
+        beta_hat = float(lvl0["Coefficient"].iloc[0])
+        p_val = float(lvl0["p_value"].iloc[0])
+        gates["g3_music_effect_beta"] = beta_hat
+        gates["g3_music_effect_p"] = p_val
+        _require(beta_hat > 0 and p_val < 0.05,
+                 f"G3: Level-0 music effect beta {beta_hat}, p {p_val}")
+
+        # s5: CBPA from the stored artifacts, nulls on the card (:675-711)
+        cfgs = [TCB.CBPAConfig(
+            modality="CMC", modality_file_id="Flexor", freq_band="beta",
+            condition_A="Happy", condition_B="Silence",
+            n_permutations=CBPA_PERMUTATIONS, tail=1, data_root=work,
+            cmc_time_window_sec=WINDOW_SEC, output_dir=out_dir / "cbpa",
+            hypothesis_label="cbpa_cmc_happy_vs_silence", save_plots=False,
+            device=device), TCB.CBPAConfig(
+            modality="PSD", modality_file_id="eeg", freq_band="alpha",
+            condition_A="Happy", condition_B="Silence",
+            n_permutations=CBPA_PERMUTATIONS, tail=0, data_root=work,
+            psd_time_window_sec=PSD_WINDOW_SEC, output_dir=out_dir / "cbpa",
+            hypothesis_label="cbpa_psd_happy_vs_silence", save_plots=False,
+            device=device)]
+        clock.wrap(TCB, "cluster_permutation_1samp_test", "null")
+        clock.wrap(TCB, "build_contrast_array", "contrast")
+        t0 = tick()
+        results, _ = TCB.run_batch(cfgs)
+        stages["s5_cbpa_sec"] = tick() - t0
+        clock.restore()
+        detail["s5_cbpa"] = [
+            {"label": c.hypothesis_label, "shape": list(r["t_obs"].shape),
+             "nodes": int(r["t_obs"].size), "tail": c.tail,
+             "contrast_sec": clock.sec["contrast"][i],
+             "null_sec": clock.sec["null"][i],
+             "clusters": len(r["clusters"]),
+             "min_p": float(np.min(r["cluster_pv"]))
+             if len(r["cluster_pv"]) else 1.0}
+            for i, (c, r) in enumerate(zip(cfgs, results))]
+        res = results[0]
+        gates["g4_cbpa_sig_clusters"] = int(len(res["good_cluster_inds"]))
+        gates["g4_cbpa_min_p"] = detail["s5_cbpa"][0]["min_p"]
+        _require(len(res["good_cluster_inds"]) >= 1,
+                 f"G4: no cluster at p < 0.05 ({res['cluster_pv']})")
+        for r in results:
+            _require(len(r["H0"]) == CBPA_PERMUTATIONS + 1
+                     and bool(np.isfinite(r["H0"]).all()),
+                     f"CBPA H0 {np.shape(r['H0'])}")
+
+        # s5: LOSO influence and the power grid (:722-735)
+        t0 = tick()
+        TStat.run_influence_analysis(
+            [("CMC_Flexor_max_beta", 1, 1),
+             ("CMC_Extensor_max_beta", 1, 1)],
+            combined, feat_root, out_dir, TA.fetch_level_definitions)
+        stages["s5_loso_sec"] = tick() - t0
+        diag: dict = {}
+        t0 = tick()
+        power = TStat.run_power_analysis(
+            [TStat.PowerConfig(dependent_var="CMC_Flexor_max_beta",
+                               comp_lvl=1, n_segments=1,
+                               target_parameters=[],
+                               n_simulations=POWER_SIMULATIONS)],
+            combined, feat_root, out_dir, TA.fetch_level_definitions,
+            device=device, diagnostics=diag)
+        stages["s5_power_sec"] = tick() - t0
+        detail["s5_power"] = {k: v for k, v in diag.items()
+                              if isinstance(v, (int, float))}
+        _require(power is not None and len(power) > 0,
+                 "s5: the power analysis returned nothing")
+    finally:
+        clock.restore()
+        shutil.rmtree(work, ignore_errors=True)
+    stages["pipeline_sec"] = sum(v for k, v in stages.items()
+                                 if k[:2] in ("s1", "s2", "s3", "s4", "s5"))
+    return {"stages": stages, "gates": gates, "detail": detail}
+
+
 def reset_launches() -> None:
     cuda_msc.msc_jackknife.launches = 0
     cuda_null.null_tile.launches = 0
@@ -1718,7 +2162,11 @@ def main() -> int:
     device = torch.device("cuda")
     card = card_name_and_power()
     log(card)
+    import pandas
+    import scipy
     log(json.dumps({"torch": torch.__version__, "cuda": torch.version.cuda,
+                    "numpy": np.__version__, "scipy": scipy.__version__,
+                    "pandas": pandas.__version__,
                     "mba_tpu_torch": mba_tpu_torch.__version__,
                     "device": torch.cuda.get_device_name(0),
                     "tf32_matmul": torch.backends.cuda.matmul.allow_tf32}))
@@ -1876,11 +2324,25 @@ def main() -> int:
                     "small_against_cpu": small, "power_grid": power,
                     "mediation": mediation, "cbpa": cbpa,
                     "launches": n_stat}))
+    del frame
+    torch.cuda.empty_cache()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    pipe = run_pipeline(device)
+    n_pipe = launches()
+    _require(n_pipe["msc_jackknife"] > 0 and n_pipe["threefry"] > 0,
+             f"the pipeline did not launch B1 and threefry: {n_pipe}")
+    log(json.dumps({"phase": "pipeline", "card": card,
+                    "sec": time.perf_counter() - t0, **pipe,
+                    "launches": n_pipe}))
+    torch.cuda.empty_cache()
 
     paths = {"cmc": n_cmc, "null_gram": n_gram, "null_pallas": n_pallas,
              "null_per_window": n_pw, "fft_null": n_fft,
              "feature_extraction": n_feat, "preprocessing": n_pre,
-             "phase_null": n_phase, "statistics": n_stat}
+             "phase_null": n_phase, "statistics": n_stat,
+             "pipeline": n_pipe}
     by_path = lambda k: {p: n[k] for p, n in paths.items()}
     kernels = [
         {"name": "msc_jackknife", "route": "cuda",

@@ -32,11 +32,19 @@ The slices so far:
   mediation bootstrap on the card), ``pipeline.statistical_modelling``
   (the power grid on the card), ``ops.permutation`` (the sign-flip
   cluster-permutation null on the card) and the RQ-A/RQ-B omnibus and
-  mediation workflows.
+  mediation workflows;
+- the study pipeline's glue, host copies that join the stages: OTB4
+  import (``io``), the log and serial integration
+  (``pipeline.data_integration``, ``pipeline.data_analysis``, the study
+  curation and data-integration workflows), ``run_subject`` with the
+  enriched serial frame, the "Combined Statistics Nseg" frames
+  (``workflows.statistics_data_preparation_workflow``), the CBPA contrast
+  assembly and batch (``pipeline.cbpa``, its null on the card) with the
+  RQ-A post-hoc workflow, and ``tools.synth_study``'s study tree.
 
 The package imports torch, numpy and scipy (pandas only where a frame or
-an experiment log is read, matplotlib only where a figure is drawn),
-never ``jax`` or ``mba_tpu``.  Public functions
+an experiment log is read, matplotlib only where a figure is drawn,
+sklearn only inside the MI fit), never ``jax`` or ``mba_tpu``.  Public functions
 keep the JAX package's signatures, layouts (samples on axis 0) and result
 dictionaries, and return numpy arrays, or a tensor on the device where
 the JAX function returns a device array.  Each entry point runs on the

@@ -1,5 +1,5 @@
 """High-level biosignal feature extraction (port of
-``mba_tpu/pipeline/signal_features.py`` up to :781).
+``mba_tpu/pipeline/signal_features.py``).
 
 Every public symbol of that part keeps its name and semantics; the dense
 numerics are the port's :mod:`mba_tpu_torch.ops`:
@@ -20,10 +20,10 @@ numpy, except
 ``multitaper_psd(device_output=True)`` and the device path of
 ``band_aggregate_spectrogram``, which return tensors on the device.
 
-Not in this slice (ROADMAP A-list): the serial-sensor features
-(``compute_heart_rate_and_variability``, ``compute_task_wise_scaled_
-force``, ``compute_feature_mi_importance``, ``signal_features.py:786``
-on).  pandas is imported only where an experiment log is read.
+The serial-sensor features (``compute_heart_rate_and_variability``,
+``compute_task_wise_scaled_force``) and ``compute_feature_mi_importance``
+(``signal_features.py:786`` on) are host copies: pandas is imported only
+where a log or a serial trace is read, sklearn only inside the MI fit.
 """
 from __future__ import annotations
 
@@ -767,3 +767,240 @@ def fetch_band_aggregates(dir: Path | str, modality: str,
             z["payload"].astype(np.float32), z["time_centers"],
             [str(s) for s in z["band_names"]], z["band_edges"],
             modality=modality)
+
+# --------------------------------------------------------------------------
+# serial-sensor features
+# --------------------------------------------------------------------------
+def compute_heart_rate_and_variability(
+        ecg_series: pd.Series,
+        heart_beat_threshold_quantile: float = 0.8,
+        rolling_window: str = "15s",
+        refractory_period: str = "300ms",
+        output_smoothing_window_sec: float = 2.5,
+        min_bpm: float = 30.0, max_bpm: float = 200.0,
+        max_hrv_seconds: float = 0.3,
+        verbose: bool = True):
+    """BPM + RMSSD-style HRV from ECG (reference :1506-1720).
+
+    Adaptive rolling-quantile beat detection, refractory filtering,
+    physiological interval filtering, forward-fill + rolling-mean smoothing.
+    Returns (bpm_series, hrv_series) or (None, None).
+    """
+    import pandas as pd
+
+    assert isinstance(ecg_series.index, pd.DatetimeIndex), \
+        "ecg_series index is not a datetime index!"
+    scaled = ((ecg_series - ecg_series.min())
+              / (ecg_series.max() - ecg_series.min()))
+    threshold = scaled.rolling(window=rolling_window, min_periods=1
+                               ).quantile(heart_beat_threshold_quantile)
+    above = scaled > threshold
+    onsets = (above != above.shift()) & above
+    onset_ts = ecg_series.loc[onsets].index.tolist()
+    if len(onset_ts) < 2:
+        if verbose:
+            print(f"ERROR: Only {len(onset_ts)} beat(s) detected.")
+        return None, None
+
+    refractory = pd.Timedelta(refractory_period)
+    filtered = []
+    for t in onset_ts:
+        if not filtered or (t - filtered[-1]) >= refractory:
+            filtered.append(t)
+    onset_ts = filtered
+    if len(onset_ts) < 2:
+        if verbose:
+            print("ERROR: fewer than 2 beats after refractory filtering.")
+        return None, None
+
+    intervals = np.array([(b - a).total_seconds()
+                          for a, b in zip(onset_ts[:-1], onset_ts[1:])])
+    nz = intervals > 0
+    if not nz.all():
+        onset_ts = [onset_ts[0]] + [onset_ts[i + 1]
+                                    for i in range(len(intervals)) if nz[i]]
+        intervals = intervals[nz]
+    bpm = 60.0 / intervals
+    valid = ((intervals >= 60.0 / max_bpm)
+             & (intervals <= 60.0 / min_bpm))
+    if valid.sum() == 0:
+        if verbose:
+            print("ERROR: all intervals filtered as physiological outliers.")
+        return None, None
+    intervals_f = intervals[valid]
+    bpm_f = bpm[valid]
+    valid_pairs = [(onset_ts[i], onset_ts[i + 1])
+                   for i in range(len(onset_ts) - 1) if valid[i]]
+
+    hrv_raw = np.abs(np.diff(intervals_f))
+    if verbose and len(hrv_raw) > 0:
+        kept = hrv_raw[hrv_raw <= max_hrv_seconds]
+        rmssd = np.sqrt(np.mean(kept ** 2)) if len(kept) else np.nan
+        print(f"Detected {len(onset_ts)} beats; RMSSD "
+              f"{rmssd * 1000:.1f} ms over {len(kept)} intervals")
+
+    bpm_series = pd.Series(index=[p[1] for p in valid_pairs], data=bpm_f)
+    if len(valid_pairs) >= 2 and len(hrv_raw) > 0:
+        hrv_series = pd.Series(
+            index=[valid_pairs[i + 1][1] for i in range(len(hrv_raw))],
+            data=hrv_raw)
+    else:
+        hrv_series = pd.Series(dtype=float)
+
+    merged = ecg_series.to_frame('ecg').join(
+        bpm_series.to_frame('bpm'), how='left').join(
+        hrv_series.to_frame('hrv'), how='left')
+    win = f"{output_smoothing_window_sec}s"
+    bpm_out = merged['bpm'].ffill().rolling(window=win, min_periods=1).mean()
+    hrv_out = merged['hrv'].ffill().rolling(window=win, min_periods=1).mean()
+    return bpm_out, hrv_out
+
+
+def compute_task_wise_scaled_force(fsr_series: pd.Series,
+                                   enriched_log_df: pd.DataFrame,
+                                   min_samples: int = 10,
+                                   min_percentile: float = .01,
+                                   max_percentile: float = .99,
+                                   verbose: bool = True,
+                                   trial_start_ends: list | None = None
+                                   ) -> pd.Series:
+    """Per-trial robust (1–99 pct) min-max force scaling (ref :1723-1816).
+
+    NaN outside trials; constant trials map to 0.5.  ``trial_start_ends``
+    may be passed directly (testing) instead of deriving from the log.
+    """
+    import pandas as pd
+
+    from mba_tpu_torch.pipeline.data_analysis import make_timezone_aware
+
+    assert isinstance(fsr_series.index, pd.DatetimeIndex), \
+        "fsr_series.index is not a datetime index!"
+    fsr_series = fsr_series.copy()
+    fsr_series.index = make_timezone_aware(fsr_series.index)
+
+    if trial_start_ends is None:
+        from mba_tpu_torch.pipeline import data_integration
+        trial_start_ends = data_integration.get_all_task_start_ends(
+            enriched_log_df, output_type='list')
+
+    out = pd.Series(index=fsr_series.index, data=np.nan, dtype=float,
+                    name='Task-wise Scaled Force')
+    skipped = 0
+    for trial_idx, (start, end) in enumerate(trial_start_ends):
+        subset = fsr_series.loc[start:end]
+        if len(subset) == 0:
+            skipped += 1
+            continue
+        vals = subset.dropna().to_numpy()
+        if len(vals) < min_samples:
+            if verbose:
+                print(f"Trial {trial_idx}: only {len(vals)} valid samples "
+                      f"(< {min_samples}), skipping")
+            skipped += 1
+            continue
+        lo = np.quantile(vals, q=min_percentile)
+        hi = np.quantile(vals, q=max_percentile)
+        if hi - lo < 1e-6:
+            out.loc[start:end] = 0.5
+            continue
+        scaled = ((subset - lo) / (hi - lo)).clip(lower=0.0, upper=1.0)
+        out.loc[scaled.index] = scaled.values
+    if verbose and skipped:
+        print(f"Skipped {skipped}/{len(trial_start_ends)} trials due to "
+              f"insufficient data")
+    return out
+
+
+# --------------------------------------------------------------------------
+# statistical features
+# --------------------------------------------------------------------------
+def compute_feature_mi_importance(feature_array, target_array,
+                                  feature_labels,
+                                  target_label: str = 'Target',
+                                  target_type: str = 'auto',
+                                  feature_type: str = 'auto',
+                                  random_state: int = 42,
+                                  sort_by_importance: bool = True,
+                                  include_barplot: bool = False,
+                                  plot_save_dir=None, **_ignored):
+    """Mutual-information feature importances (reference :1820-2065).
+
+    Auto-detects discrete vs continuous features/targets (string dtype →
+    discrete; numeric with unique-ratio < 5 % → discrete).
+    """
+    from sklearn.feature_selection import (mutual_info_classif,
+                                           mutual_info_regression)
+    from sklearn.preprocessing import LabelEncoder
+
+    if hasattr(feature_array, 'values'):
+        feature_array = feature_array.values
+    feature_array = np.asarray(feature_array)
+    target_original = np.asarray(target_array)
+
+    def is_cat(arr):
+        arr = np.asarray(arr)
+        return arr.dtype == object or arr.dtype.kind in ('U', 'S')
+
+    def infer(arr, ratio=0.05):
+        arr = np.asarray(arr, dtype=float)
+        return ('discrete'
+                if len(np.unique(arr)) / len(arr) < ratio else 'continuous')
+
+    if target_type == 'auto':
+        if is_cat(target_original):
+            target_type = 'discrete'
+            target_encoded = LabelEncoder().fit_transform(target_original)
+        else:
+            try:
+                target_encoded = target_original.astype(float)
+                target_type = infer(target_encoded)
+            except (ValueError, TypeError):
+                target_type = 'discrete'
+                target_encoded = LabelEncoder().fit_transform(
+                    target_original)
+    elif target_type == 'discrete':
+        target_encoded = (LabelEncoder().fit_transform(target_original)
+                          if is_cat(target_original)
+                          else target_original.astype(int))
+    else:
+        target_encoded = target_original.astype(float)
+
+    n_feat = feature_array.shape[1]
+    encoded = np.zeros((feature_array.shape[0], n_feat), dtype=float)
+    cat_mask = np.zeros(n_feat, dtype=bool)
+    for j in range(n_feat):
+        col = feature_array[:, j]
+        if is_cat(col):
+            cat_mask[j] = True
+            encoded[:, j] = LabelEncoder().fit_transform(col)
+        else:
+            try:
+                encoded[:, j] = col.astype(float)
+            except (ValueError, TypeError):
+                cat_mask[j] = True
+                encoded[:, j] = LabelEncoder().fit_transform(col)
+
+    if feature_type == 'auto':
+        types = ['discrete' if cat_mask[j] else infer(encoded[:, j])
+                 for j in range(n_feat)]
+        feature_type = ('discrete'
+                        if sum(t == 'discrete' for t in types) > n_feat / 2
+                        else 'continuous')
+
+    if target_type == 'discrete':
+        mi = mutual_info_classif(encoded, target_encoded.astype(int),
+                                 random_state=random_state)
+    else:
+        mi = mutual_info_regression(encoded, target_encoded.astype(float),
+                                    random_state=random_state)
+
+    importance = dict(zip(feature_labels, mi))
+    if sort_by_importance:
+        importance = dict(sorted(importance.items(), key=lambda x: x[1],
+                                 reverse=True))
+    if include_barplot:
+        from mba_tpu_torch.pipeline import visualizations
+        fig, ax = visualizations.plot_mi_barplot(
+            importance, target_label, plot_save_dir=plot_save_dir)
+        return fig, ax, importance
+    return importance

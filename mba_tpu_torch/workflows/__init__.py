@@ -1,4 +1,6 @@
 """Stage workflows of the port (``mba_tpu/workflows``), one slice at a
-time: the per-subject feature extraction's PSD and CMC entry points, the
-preprocessing workflow, and the statistics workflows (RQ-A and RQ-B
-omnibus, RQ-A mediation) with the study paths their scripts use."""
+time: the OTB4 import, the data integration with the study's curation
+record, the preprocessing workflow, the per-subject feature extraction
+(``run_subject``), the statistics data preparation (the Combined
+Statistics frames), and the statistics workflows (RQ-A and RQ-B omnibus,
+RQ-A mediation and post-hoc) with the study paths their scripts use."""

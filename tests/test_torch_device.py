@@ -30,8 +30,14 @@ from mba_tpu_torch.ops import spectral as TS
 from mba_tpu_torch.ops import surrogate as TSu
 from mba_tpu_torch.ops.dpss import filtered_tapers
 from mba_tpu_torch.ops import wavelet as TW
+from mba_tpu_torch.pipeline import cbpa as TCB
 from mba_tpu_torch.pipeline import preprocessing as TP
 from mba_tpu_torch.pipeline import signal_features as TF
+from mba_tpu_torch.workflows import \
+    statistics_RQ_A_post_hoc_testing_workflow as TPH
+from mba_tpu_torch.workflows import subject_feature_extraction_workflow \
+    as TSF
+from mba_tpu_torch.workflows.paths import StudyPaths
 
 from _torch_parity import cohort_subject, coupled_signals
 
@@ -132,6 +138,16 @@ def _calls():
             TPerm.cluster_permutation_1samp_test(
                 contrast, TPerm.combine_adjacency(5, chain),
                 n_permutations=40, **d),
+        # the study pipeline: each raises before it reads or writes
+        "run_subject": lambda **d: TSF.run_subject(
+            0, StudyPaths("missing_study"), **d),
+        "run_cbpa": lambda **d: TCB.run_cbpa(TCB.CBPAConfig(
+            data_root="missing_study", output_dir="missing_study", **d)),
+        "run_batch": lambda **d: TCB.run_batch([TCB.CBPAConfig(
+            data_root="missing_study", output_dir="missing_study", **d)]),
+        "run_post_hoc": lambda **d: TPH.run_post_hoc(
+            "missing_study", "missing_study", "missing_study",
+            "missing_study", run_heterogeneity=False, **d),
     }
 
 
@@ -144,7 +160,8 @@ ENTRY_POINTS = ["multitaper_msc", "cohort_msc_rotation_null",
                 "notch_filter", "wavelet_denoise", "InfomaxICA.fit",
                 "BiosignalPreprocessor", "batched_lme_pvalues",
                 "run_power_analysis", "bootstrap_indirect_effect",
-                "run_mediation_analysis", "cluster_permutation_1samp_test"]
+                "run_mediation_analysis", "cluster_permutation_1samp_test",
+                "run_subject", "run_cbpa", "run_batch", "run_post_hoc"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -174,3 +191,32 @@ def test_the_statistics_entry_points_run_on_the_cpu_when_asked_for(
         "bootstrap_status"] == "not_fitted"
     H0 = calls["cluster_permutation_1samp_test"](device="cpu")[3]
     assert len(H0) == 41 and np.isfinite(H0).all()
+
+
+def test_the_pipeline_entry_points_run_on_the_cpu_when_asked_for(
+        tmp_path, monkeypatch):
+    """``run_subject(device="cpu")`` on a one-subject study writes the
+    PSD and CMC artifacts; ``run_cbpa`` with ``CBPAConfig(device="cpu")``
+    runs its null on the CPU; without ``device`` the four refuse before
+    they create anything in the study directory they name."""
+    from _torch_study import write_small_study
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    write_small_study(tmp_path, 1)
+    TSF.run_subject(0, StudyPaths(tmp_path), sampling_freq=128.0,
+                    do_compute_serial=False, device="cpu")
+    feat = tmp_path / "data" / "precomputed_features" / "subject_00"
+    assert TF.fetch_stored_spectrograms(feat, "CMC", "Flexor")[0].size
+    assert TF.fetch_stored_spectrograms(feat, "PSD", "eeg")[0].size
+    rng = np.random.default_rng(1)
+    X = rng.standard_normal((6, 5, 3)).astype(np.float32)
+    X[:, 1:3] += 2.0
+    res = TCB.run_cbpa(TCB.CBPAConfig(
+        n_permutations=40, output_dir=tmp_path / "cbpa", save_plots=False,
+        device="cpu"), X=X, ch_names=["C3", "C1", "Cz"],
+        time_grid=np.arange(5.0))
+    assert len(res["H0"]) == 41 and np.isfinite(res["H0"]).all()
+    for name in ("run_subject", "run_cbpa", "run_batch", "run_post_hoc"):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            _calls()[name]()
+    assert not (tmp_path / "missing_study").exists()

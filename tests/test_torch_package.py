@@ -68,8 +68,9 @@ def _spectra(seed, W, ws, nE, nM, device="cpu", nw=3):
 
 def test_package_imports_neither_jax_nor_mba_tpu():
     """In a fresh interpreter: the pytest process has JAX loaded already
-    (tests/conftest.py), so only a subprocess can tell.  matplotlib is not
-    loaded either: the port imports it only to draw."""
+    (tests/conftest.py), so only a subprocess can tell.  matplotlib and
+    sklearn are not loaded either: the port imports them only to draw and
+    inside the MI fit (the card machine has neither)."""
     names = _module_names()
     assert {"mba_tpu_torch.ops.cuda_msc", "mba_tpu_torch.ops.cuda_null",
             "mba_tpu_torch.ops.cuda_coeffs",
@@ -98,12 +99,21 @@ def test_package_imports_neither_jax_nor_mba_tpu():
             "mba_tpu_torch.workflows.statistics_RQ_B_omnibus_testing_workflow",
             "mba_tpu_torch.workflows."
             "statistics_RQ_A_mediation_analysis_workflow",
-            "mba_tpu_torch.workflows.paths"} <= set(names)
+            "mba_tpu_torch.workflows.paths",
+            "mba_tpu_torch.acquisition.sampling", "mba_tpu_torch.io.otb4",
+            "mba_tpu_torch.workflows.otb4_import_workflow",
+            "mba_tpu_torch.workflows.study_curation",
+            "mba_tpu_torch.workflows.data_integration_workflow",
+            "mba_tpu_torch.workflows.statistics_data_preparation_workflow",
+            "mba_tpu_torch.workflows."
+            "statistics_RQ_A_post_hoc_testing_workflow",
+            "mba_tpu_torch.tools.synth_study"} <= set(names)
     code = (f"import importlib, sys\n"
             f"for name in {names!r}:\n"
             f"    importlib.import_module(name)\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0]\n"
-            f"             in ('jax', 'jaxlib', 'mba_tpu', 'matplotlib'))\n"
+            f"             in ('jax', 'jaxlib', 'mba_tpu', 'matplotlib',\n"
+            f"                 'sklearn'))\n"
             f"assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
