@@ -87,13 +87,28 @@ result):
    RQ-A omnibus (14 DVs × 4 levels × 4 resolutions, FDR on levels 2-3),
    the two CBPA contrasts assembled from the stored artifacts (1 024
    permutations each, signs by threefry, the null on the card), the
-   LOSO influence and the 500-simulation power grid.  Gates G1-G4 of
-   tools/bench_pipeline.py:24-36: the music-trial beta CMC above the
-   Beta(K−2, K−2) threshold; the music-over-silence Fisher-z gap above
-   0.15 with one-sided Welch p < 1e-3; the Level-0 music effect on
-   ``CMC_Flexor_max_beta`` positive with p < 0.05; a Happy-vs-Silence
-   CMC cluster at p < 0.05;
-11. one JSON line describing the kernels: per kernel its launches on its
+   LOSO influence, the 500-simulation power grid and the Markdown report
+   (``build_report`` on the results, with the methods note of one small
+   ``cohort_msc_null`` run on the card before the counted run: one
+   section per hypothesis and DV of the omnibus, frame-validation
+   warnings only for the frames the phase does not write where the
+   report reads).  Gates G1-G4 of tools/bench_pipeline.py:24-36: the
+   music-trial beta CMC above the Beta(K−2, K−2) threshold; the
+   music-over-silence Fisher-z gap above 0.15 with one-sided Welch
+   p < 1e-3; the Level-0 music effect on ``CMC_Flexor_max_beta``
+   positive with p < 0.05; a Happy-vs-Silence CMC cluster at p < 0.05.
+   Then, on subject 0 of the same tree, the time-alignment validation:
+   the EMG PSD and force loaded from s3's artifacts, the flexor/extensor
+   power ratio (Welch) of the preprocessed grids on the card (and of
+   their first 300 s on the card against the CPU), the envelope-force
+   identity check (resampling) on the card against the CPU, the
+   per-trial alignment and the cohort's sampling-rate sweep;
+11. the music features: a synthetic 120-s 16-bit mono click track at
+   44.1 kHz, 120 BPM with a syncopated click in each beat, through
+   ``compute_all_musical_features`` on the card and on the CPU: the STFT
+   magnitudes within tests/test_torch_music.py's tolerance, the BPM and
+   the onset count equal, the BPM within 2 of the planted tempo;
+12. one JSON line describing the kernels: per kernel its launches on its
    main path (and on every path, ``launches_by_path``), its error
    against the plain version, CUDA-event times of the kernel and the
    plain version, its bound (the larger of the bytes it must move over
@@ -258,6 +273,27 @@ H0_RTOL, H0_ATOL = 1e-4, 1e-4
 PIPE_SUBJECTS, PIPE_SEGMENTS = 12, (1, 2, 5, 10)
 PIPE_BETA = (16.0, 28.0)
 PIPE_Z_GAP, PIPE_WELCH_P = 0.15, 1e-3
+# the report's methods note: one cohort_msc_null call on the card at
+# check_small_against_cpu's cohort (2 subjects × 12 s × 8×8); at 20 000
+# surrogates its full-FFT estimate (5.1e12 flop) is over the CUDA budget,
+# so the rotation engine runs and the note on its detection limit shows;
+# the frames validate_frames may find empty where the report reads
+# (tools/bench_pipeline.py:739): the phase runs no subject-effect summary
+# and writes its CBPA summary under stats_out/cbpa
+REPORT_NULL_SURROGATES = 20_000
+REPORT_EMPTY_FRAMES = ("subject_heterogeneity", "cbpa_results")
+# the time-alignment validation: card against CPU at the CPU tests'
+# tolerance (tests/test_torch_time_alignment.py); the power ratio's CPU
+# Welch takes ~8 s over both whole grids, so card and CPU are compared on
+# their first ALIGN_HEAD_SEC (the card also runs the whole grids)
+ALIGN_RTOL = 1e-5
+ALIGN_HEAD_SEC = 300.0
+# the music phase: a 120-s 16-bit mono click track at 44.1 kHz, 120 BPM,
+# a 1-kHz click on each beat and a softer 1.5-kHz one three quarters into
+# it; the STFT card against CPU at tests/test_torch_music.py's tolerance
+MUSIC_SR, MUSIC_SECONDS, MUSIC_BPM = 44100, 120.0, 120.0
+MUSIC_SYNCOPATION, MUSIC_BPM_TOL = 0.75, 2.0
+STFT_RTOL, STFT_ATOL = 1e-5, 1e-6      # atol × the spectrum's maximum
 
 
 def log(msg: str) -> None:
@@ -1864,11 +1900,13 @@ def pipeline_cmc_gates(feat0, plan, fs) -> dict:
     return gates
 
 
-def run_pipeline(device) -> dict:
+def run_pipeline(device, null_metadata) -> dict:
     """The study pipeline of tools/bench_pipeline.py through the port's
     entry points: s1-s3 on one subject at study scale, s4-s5 on a
-    12-subject tree (module docstring, phase 10).  Each stage is timed on
-    the host clock after ``torch.cuda.synchronize()``; G1-G4 must hold."""
+    12-subject tree (module docstring, phase 10), then the time-alignment
+    validation on its subject 0.  Each stage is timed on the host clock
+    after ``torch.cuda.synchronize()``; G1-G4 must hold.  The report's
+    methods section reads ``null_metadata``."""
     import shutil
     import pandas as pd
     from mba_tpu_torch.io.otb4 import read_otb4, write_otb4
@@ -1880,6 +1918,7 @@ def run_pipeline(device) -> dict:
         statistics_data_preparation_workflow as TSD
     from mba_tpu_torch.workflows import \
         statistics_RQ_A_omnibus_testing_workflow as TA
+    from mba_tpu_torch.workflows import statistics_report_workflow as TRW
     from mba_tpu_torch.workflows import \
         subject_feature_extraction_workflow as TSF
     from mba_tpu_torch.workflows.paths import StudyPaths
@@ -2130,12 +2169,247 @@ def run_pipeline(device) -> dict:
                               if isinstance(v, (int, float))}
         _require(power is not None and len(power) > 0,
                  "s5: the power analysis returned nothing")
+
+        # s5: the Markdown report on the phase's results (:736-740)
+        t0 = tick()
+        report = TRW.build_report(
+            out_dir, out_dir, work / "reports", "pipeline",
+            level_definitions=TA.fetch_level_definitions(False),
+            fdr_levels_to_correct=[2, 3],
+            surrogate_null_metadata=null_metadata)
+        stages["s5_report_sec"] = tick() - t0
+        detail["s5_report"] = check_report(report, combined)
+
+        # the time-alignment validation on subject 0
+        detail["alignment"] = run_alignment(paths, plan, fs, device)
     finally:
         clock.restore()
         shutil.rmtree(work, ignore_errors=True)
     stages["pipeline_sec"] = sum(v for k, v in stages.items()
                                  if k[:2] in ("s1", "s2", "s3", "s4", "s5"))
     return {"stages": stages, "gates": gates, "detail": detail}
+
+
+def report_null_metadata(device) -> list:
+    """The metadata of one small ``cohort_msc_null`` call on the card, for
+    the report's methods section: the rotation engine (the default CUDA
+    budget's choice at REPORT_NULL_SURROGATES) with its sensitivity note."""
+    ce, cm = make_cohort(2, 12.0, 8, 8)
+    res = TN.cohort_msc_null(ce, cm, FS, n_surrogates=REPORT_NULL_SURROGATES,
+                             device=device, nw=NW, window_length_sec=WINDOW_SEC,
+                             overlap_frac=OVERLAP, band=BAND,
+                             surrogate_chunk=SURROGATE_CHUNK)
+    choice = res["metadata"]["engine_choice"]
+    _require(choice["method_run"] == "rotation"
+             and choice["fft_flop_budget"] == TN.FFT_FLOP_BUDGET["cuda"]
+             and res["metadata"]["sensitivity_note"] == TN.SENSITIVITY_NOTE,
+             f"report null: engine choice {choice}")
+    _require(bool(np.isfinite(res["max_stat"]).all()),
+             "report null: bad max_stat")
+    return [dict(res["metadata"], label="cohort null 2 × 12 s × 8×8")]
+
+
+def check_report(path, combined) -> dict:
+    """The report exists, holds one section per (Hypothesis, DV) pair of
+    the omnibus frame and the null-engine methods note, and its frame
+    warnings name only REPORT_EMPTY_FRAMES."""
+    _require(path.exists(), f"s5: no report at {path}")
+    lines = path.read_text(encoding="utf-8").splitlines()
+    sections = [(lines[i][3:], lines[i + 1])
+                for i in range(len(lines) - 1)
+                if lines[i].startswith("## ")
+                and lines[i + 1].startswith("**Dependent variable:** ")]
+    pairs = combined[["Hypothesis", "Dependent_Variable"]].drop_duplicates()
+    want = sorted((h, f"**Dependent variable:** `{dv}`")
+                  for h, dv in pairs.itertuples(index=False))
+    _require(sorted(sections) == want,
+             f"s5 report: {len(sections)} sections for {len(want)} pairs")
+    warned = sorted(re.findall(r"^- `(\w+)` ", "\n".join(lines), re.M))
+    _require(set(warned) <= set(REPORT_EMPTY_FRAMES),
+             f"s5 report: frame warnings {warned}")
+    _require("## Surrogate-Null Engine (Methods)" in lines
+             and f"> {TN.SENSITIVITY_NOTE}" in lines,
+             "s5 report: no null-engine section")
+    return {"sections": len(sections), "lines": len(lines),
+            "bytes": path.stat().st_size, "frame_warnings": warned}
+
+
+def _require_alignment_close(what, got, ref) -> dict:
+    """Card against CPU: floats within ALIGN_RTOL, the rest equal."""
+    errs = {}
+    for key, value in ref.items():
+        if isinstance(value, float) and np.isfinite(value):
+            errs[key] = abs(got[key] - value) / max(abs(value), 1e-12)
+            _require(errs[key] <= ALIGN_RTOL,
+                     f"{what} {key}: card {got[key]} vs cpu {value}")
+        else:
+            _require(got[key] == value or (value != value and
+                                           got[key] != got[key]),
+                     f"{what} {key}: card {got[key]!r} vs cpu {value!r}")
+    return errs
+
+
+def run_alignment(paths, plan, fs, device) -> dict:
+    """The time-alignment validation workflow on subject 0 of the
+    pipeline's tree: the EMG band power and force from s3's artifacts,
+    the flexor/extensor power ratio of the preprocessed grids on the card
+    (and of their first ALIGN_HEAD_SEC on the card and on the CPU, held to
+    ALIGN_RTOL), the envelope-force identity check on both (held to
+    ALIGN_RTOL), the alignment of each music trial, the sampling-rate
+    sweep.  Seconds per call, host clock closed by a synchronise."""
+    import pandas as pd
+    from mba_tpu_torch.utils import file_management as filemgmt
+    from mba_tpu_torch.workflows import \
+        time_alignment_validation_workflow as TT
+
+    sec, out = {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        sec[name] = time.perf_counter() - t0
+        return res
+
+    load = timed("load_emg_psd_both_muscles",
+                 lambda: TT.load_emg_psd_both_muscles(
+                     0, paths.feature_data, paths.experiment_data))
+    _require(load["flexor"] is not None and load["extensor"] is not None,
+             "alignment: no EMG PSD artifacts of s3")
+    power, times = load["flexor"]
+    force = load["force_series"]
+    feat0 = paths.subject_feature_dir(0)
+    grids = [np.load(filemgmt.most_recent_file(
+        feat0, ".npy", ["Preprocessed", key]), mmap_mode="r")
+        for key in ("emg_1_flexor", "emg_2_extensor")]
+    out["power_ratio"] = timed("emg_power_ratio", lambda: TT.emg_power_ratio(
+        *grids, fs, device=device))
+    head = [g[:int(ALIGN_HEAD_SEC * fs)] for g in grids]
+    ratio = {dev: timed(f"emg_power_ratio_head_{dev}",
+                        lambda dev=dev: TT.emg_power_ratio(
+                            *head, fs, device=dev))
+             for dev in (device, "cpu")}
+    out["power_ratio_head_rel_err"] = _require_alignment_close(
+        "emg_power_ratio", {"r": ratio[device]}, {"r": ratio["cpu"]})["r"]
+    fs_emg = 1e9 / float(np.median(np.diff(times.asi8)))
+    fs_force = 1e9 / float(np.median(np.diff(force.index.asi8)))
+    n = int(len(power) * fs_force / fs_emg)
+    ident = {dev: timed(f"validate_muscle_identity_{dev}",
+                        lambda dev=dev: TT.validate_muscle_identity(
+                            power, force.to_numpy(float)[:n], fs_emg,
+                            fs_force, device=dev))
+             for dev in (device, "cpu")}
+    out["identity"] = ident[device]
+    out["identity_rel_err"] = _require_alignment_close(
+        "validate_muscle_identity", ident[device], ident["cpu"])
+    start = times[0] - pd.Timedelta(seconds=PSD_WINDOW_SEC / 2)
+    tasks = timed("analyze_task_alignment", lambda: [
+        TT.analyze_task_alignment(
+            power, times, force, start + pd.Timedelta(seconds=t_s),
+            start + pd.Timedelta(seconds=t_e), f"music_{i}")
+        for i, (t_s, t_e) in enumerate(plan.signal_relative_spans("music"))])
+    _require(all(t["error"] is None for t in tasks),
+             f"alignment: {[t['error'] for t in tasks if t['error']]}")
+    out["tasks"] = len(tasks)
+    out["median_match_rate"] = float(np.median([t["match_rate"]
+                                                for t in tasks]))
+    sweep = timed("cohort_sampling_rate_sweep",
+                  lambda: TT.cohort_sampling_rate_sweep(
+                      range(PIPE_SUBJECTS), paths.experiment_data,
+                      paths.feature_data, nominal_fs=fs))
+    _require(0 in set(sweep["Subject ID"]), "alignment: sweep lacks subject 0")
+    out["sweep_subjects"] = len(sweep)
+    out["drift_ppm_subject0"] = float(sweep["drift_ppm"].iloc[0])
+    out["sec"] = sec
+    return out
+
+
+def write_click_track(path) -> None:
+    """MUSIC_SECONDS of 16-bit mono PCM at MUSIC_SR (module constants):
+    a 30-ms 1-kHz click on each beat at MUSIC_BPM and a softer 1.5-kHz
+    one MUSIC_SYNCOPATION into it, over faint noise."""
+    import wave
+    rng = np.random.default_rng(7)
+    y = 0.002 * rng.standard_normal(int(MUSIC_SR * MUSIC_SECONDS))
+    period = 60.0 / MUSIC_BPM
+    dur = int(0.03 * MUSIC_SR)
+    t = np.arange(dur) / MUSIC_SR
+    on = np.hanning(dur) * np.sin(2 * np.pi * 1000.0 * t)
+    off = 0.6 * np.hanning(dur) * np.sin(2 * np.pi * 1500.0 * t)
+    for beat in np.arange(0.1, MUSIC_SECONDS - 0.5, period):
+        i = int(beat * MUSIC_SR)
+        j = int((beat + MUSIC_SYNCOPATION * period) * MUSIC_SR)
+        y[i:i + dur] += on
+        y[j:j + dur] += off
+    pcm = (np.clip(y, -1.0, 1.0) * 32767).astype(np.int16)
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(MUSIC_SR)
+        w.writeframes(pcm.tobytes())
+
+
+def run_music(device) -> dict:
+    """The music features of a synthetic click track on the card against
+    the CPU (module docstring, phase 11).  The STFT is timed warm on the
+    host clock (upload, framing, rFFT and download), median of 3."""
+    import shutil
+    from mba_tpu_torch.pipeline import music_control as TM
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_music_"))
+    try:
+        path = work / "click_track.wav"
+        write_click_track(path)
+        y, sr = TM.load_audio_file(path, duration=None)
+        spec = {}
+        stft_sec = {}
+        for dev in (device, "cpu"):
+            TM.compute_stft(y, device=dev)
+            runs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                spec[dev] = TM.compute_stft(y, device=dev)
+                runs.append(time.perf_counter() - t0)
+            stft_sec[str(dev)] = float(np.median(runs))
+        S, ref = spec[device], spec["cpu"]
+        err = float(np.abs(S - ref).max())
+        bound = STFT_ATOL * float(ref.max()) + STFT_RTOL * np.abs(ref)
+        _require(S.shape == ref.shape and bool((np.abs(S - ref)
+                                                <= bound).all()),
+                 f"music: STFT card vs cpu, max abs err {err}")
+        feats, feat_sec = {}, {}
+        for dev in (device, "cpu"):
+            t0 = time.perf_counter()
+            feats[dev] = (TM.compute_all_musical_features(path, device=dev),
+                          TM.compute_onset_times(y, sr, device=dev))
+            feat_sec[str(dev)] = time.perf_counter() - t0
+        (bpm, flux, centroid, ioi_cv, sync_deg, sync_ratio), onsets = \
+            feats[device]
+        (bpm_cpu, *rest_cpu), onsets_cpu = feats["cpu"]
+        _require(bpm == bpm_cpu and len(onsets) == len(onsets_cpu),
+                 f"music: card BPM {bpm}, {len(onsets)} onsets; cpu "
+                 f"{bpm_cpu}, {len(onsets_cpu)}")
+        _require(abs(bpm - MUSIC_BPM) <= MUSIC_BPM_TOL,
+                 f"music: BPM {bpm}, planted {MUSIC_BPM}")
+        return {"samples": len(y), "sr": sr, "stft_shape": list(S.shape),
+                "stft_sec": stft_sec, "stft_max_abs_err": err,
+                "stft_max": float(ref.max()),
+                "features_sec": feat_sec, "bpm": bpm,
+                "onsets": len(onsets),
+                "onset_times_equal": bool(np.array_equal(onsets,
+                                                         onsets_cpu)),
+                "ioi_cv": ioi_cv, "syncopation_degree": sync_deg,
+                "syncopation_ratio": sync_ratio,
+                "cpu_equal": {"ioi_cv": ioi_cv == rest_cpu[2],
+                              "syncopation": (sync_deg, sync_ratio)
+                              == tuple(rest_cpu[3:])},
+                "flux_max_abs_err": float(np.abs(flux - rest_cpu[0]).max()),
+                "centroid_max_rel_err": float(
+                    (np.abs(centroid - rest_cpu[1])
+                     / np.maximum(np.abs(rest_cpu[1]), 1e-12)).max())}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def reset_launches() -> None:
@@ -2327,22 +2601,35 @@ def main() -> int:
     del frame
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    null_metadata = report_null_metadata(device)
+    report_null_sec = time.perf_counter() - t0
+    torch.cuda.empty_cache()
     reset_launches()
     t0 = time.perf_counter()
-    pipe = run_pipeline(device)
+    pipe = run_pipeline(device, null_metadata)
     n_pipe = launches()
     _require(n_pipe["msc_jackknife"] > 0 and n_pipe["threefry"] > 0,
              f"the pipeline did not launch B1 and threefry: {n_pipe}")
     log(json.dumps({"phase": "pipeline", "card": card,
                     "sec": time.perf_counter() - t0, **pipe,
+                    "report_null_sec": report_null_sec,
                     "launches": n_pipe}))
     torch.cuda.empty_cache()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    music = run_music(device)
+    n_music = launches()
+    log(json.dumps({"phase": "music", "card": card,
+                    "sec": time.perf_counter() - t0, **music,
+                    "launches": n_music}))
 
     paths = {"cmc": n_cmc, "null_gram": n_gram, "null_pallas": n_pallas,
              "null_per_window": n_pw, "fft_null": n_fft,
              "feature_extraction": n_feat, "preprocessing": n_pre,
              "phase_null": n_phase, "statistics": n_stat,
-             "pipeline": n_pipe}
+             "pipeline": n_pipe, "music": n_music}
     by_path = lambda k: {p: n[k] for p, n in paths.items()}
     kernels = [
         {"name": "msc_jackknife", "route": "cuda",

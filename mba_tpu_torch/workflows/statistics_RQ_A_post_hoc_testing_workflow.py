@@ -9,10 +9,8 @@ heterogeneity-modelling call (:492-519).
 
 Port of ``mba_tpu/workflows/statistics_RQ_A_post_hoc_testing_workflow.py``:
 the CBPA batch runs its nulls on the card (``CBPAConfig.device``), the
-figures import matplotlib only when they draw.  The heterogeneity
-modelling is not ported yet (ROADMAP A8b): ``run_post_hoc`` raises
-``NotImplementedError`` for ``run_heterogeneity=True`` before it runs
-anything.
+figures import matplotlib only when they draw, and the heterogeneity
+modelling (host code: sklearn, scipy, matplotlib) runs on the CPU.
 """
 from __future__ import annotations
 
@@ -20,10 +18,11 @@ from pathlib import Path
 
 import numpy as np
 
-from mba_tpu_torch._device import not_ported
 from mba_tpu_torch.pipeline.cbpa import (CBPAConfig, run_batch,
                                          assemble_phase_average_maps,
                                          assemble_accuracy_phase_profiles)
+from mba_tpu_torch.pipeline.heterogeneity_modelling import \
+    run_heterogeneity_modelling
 
 
 def make_phase_average_figures(data_root: Path, output_dir: Path,
@@ -125,9 +124,6 @@ def run_post_hoc(data_root: Path, output_dir: Path,
                  make_phase_figures: bool = True,
                  subject_ids: list[int] | None = None,
                  heterogeneity_dep_vars=None, device=None) -> None:
-    if run_heterogeneity:
-        raise not_ported("run_post_hoc(run_heterogeneity=True): "
-                         "pipeline/heterogeneity_modelling.py", "A8b")
     if run_cbpa_batch:
         configs = build_cbpa_configs(data_root, output_dir,
                                      n_permutations, device=device)
@@ -141,11 +137,25 @@ def run_post_hoc(data_root: Path, output_dir: Path,
         except RuntimeError as exc:
             print(f"[post-hoc] phase-average figures skipped: {exc}")
 
+    if run_heterogeneity:
+        run_heterogeneity_modelling(
+            dep_vars=heterogeneity_dep_vars or [
+                "CMC_Flexor_max_beta", "CMC_Flexor_mean_beta",
+                "CMC_Extensor_max_beta"],
+            conditions_to_evaluate={
+                "lvl_0": ("Music Listening", [True]),
+                "lvl_1": ("Category or Silence",
+                          ["Happy", "Groovy", "Sad", "Classic"])},
+            clustering_measures=["contrast", "cooks_d"],
+            plot_mi_categories=[], top_n_moderators=3,
+            min_cluster_size=2, output_dir=output_dir,
+            omnibus_results_dir=omnibus_results_dir,
+            experiment_results_dir=experiment_results_dir)
+
 
 if __name__ == "__main__":
     from mba_tpu_torch.workflows.paths import StudyPaths
 
     paths = StudyPaths().ensure()
     run_post_hoc(paths.root, paths.statistics_rq_a_post_hoc,
-                 paths.statistics_rq_a, paths.experiment_data,
-                 run_heterogeneity=False)
+                 paths.statistics_rq_a, paths.experiment_data)

@@ -31,12 +31,15 @@ from mba_tpu_torch.ops import surrogate as TSu
 from mba_tpu_torch.ops.dpss import filtered_tapers
 from mba_tpu_torch.ops import wavelet as TW
 from mba_tpu_torch.pipeline import cbpa as TCB
+from mba_tpu_torch.pipeline import music_control as TMC
 from mba_tpu_torch.pipeline import preprocessing as TP
 from mba_tpu_torch.pipeline import signal_features as TF
 from mba_tpu_torch.workflows import \
     statistics_RQ_A_post_hoc_testing_workflow as TPH
 from mba_tpu_torch.workflows import subject_feature_extraction_workflow \
     as TSF
+from mba_tpu_torch.workflows import time_alignment_validation_workflow \
+    as TTA
 from mba_tpu_torch.workflows.paths import StudyPaths
 
 from _torch_parity import cohort_subject, coupled_signals
@@ -147,7 +150,17 @@ def _calls():
             data_root="missing_study", output_dir="missing_study", **d)]),
         "run_post_hoc": lambda **d: TPH.run_post_hoc(
             "missing_study", "missing_study", "missing_study",
-            "missing_study", run_heterogeneity=False, **d),
+            "missing_study", **d),
+        # the music features and the time-alignment validation
+        "compute_stft": lambda **d: TMC.compute_stft(
+            eeg[:, 0], n_fft=256, hop_length=64, **d),
+        "compute_all_musical_features": lambda **d:
+            TMC.compute_all_musical_features("missing_song.wav", **d),
+        "validate_muscle_identity": lambda **d:
+            TTA.validate_muscle_identity(np.abs(emg[:, 0]), eeg[:, 0],
+                                         256.0, 256.0, **d),
+        "emg_power_ratio": lambda **d: TTA.emg_power_ratio(
+            emg[:, :2], emg[:, 2:], 256.0, (20.0, 100.0), **d),
     }
 
 
@@ -161,7 +174,9 @@ ENTRY_POINTS = ["multitaper_msc", "cohort_msc_rotation_null",
                 "BiosignalPreprocessor", "batched_lme_pvalues",
                 "run_power_analysis", "bootstrap_indirect_effect",
                 "run_mediation_analysis", "cluster_permutation_1samp_test",
-                "run_subject", "run_cbpa", "run_batch", "run_post_hoc"]
+                "run_subject", "run_cbpa", "run_batch", "run_post_hoc",
+                "compute_stft", "compute_all_musical_features",
+                "validate_muscle_identity", "emg_power_ratio"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -220,3 +235,33 @@ def test_the_pipeline_entry_points_run_on_the_cpu_when_asked_for(
         with pytest.raises(RuntimeError, match='device="cpu"'):
             _calls()[name]()
     assert not (tmp_path / "missing_study").exists()
+
+
+def test_the_music_and_alignment_entry_points_run_on_the_cpu_when_asked_for(
+        tmp_path, monkeypatch):
+    """The STFT, the musical features of a WAV file and the two
+    time-alignment checks that reach the device, with ``device="cpu"``;
+    ``compute_all_musical_features`` refuses before it opens the file.
+    ``run_post_hoc`` at its defaults runs on the CPU in
+    tests/test_torch_study_pipeline.py."""
+    import wave
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = _calls()
+    S = calls["compute_stft"](device="cpu")
+    assert S.shape[0] == 129 and np.isfinite(S).all()
+    assert calls["emg_power_ratio"](device="cpu") > 0
+    ident = calls["validate_muscle_identity"](device="cpu")
+    assert np.isfinite(ident["best_corr"])
+    rng = np.random.default_rng(0)
+    path = tmp_path / "song.wav"
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(8000)
+        w.writeframes((rng.standard_normal(8000 * 4) * 3000)
+                      .astype(np.int16).tobytes())
+    bpm, flux, centroid, *_ = TMC.compute_all_musical_features(
+        path, duration=4.0, device="cpu")
+    assert flux.size and np.isfinite(centroid).all()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        TMC.compute_all_musical_features(path)

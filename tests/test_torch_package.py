@@ -70,7 +70,8 @@ def test_package_imports_neither_jax_nor_mba_tpu():
     """In a fresh interpreter: the pytest process has JAX loaded already
     (tests/conftest.py), so only a subprocess can tell.  matplotlib and
     sklearn are not loaded either: the port imports them only to draw and
-    inside the MI fit (the card machine has neither)."""
+    inside the MI fit, the clustering and the song features' K-means (the
+    card machine has neither)."""
     names = _module_names()
     assert {"mba_tpu_torch.ops.cuda_msc", "mba_tpu_torch.ops.cuda_null",
             "mba_tpu_torch.ops.cuda_coeffs",
@@ -107,7 +108,15 @@ def test_package_imports_neither_jax_nor_mba_tpu():
             "mba_tpu_torch.workflows.statistics_data_preparation_workflow",
             "mba_tpu_torch.workflows."
             "statistics_RQ_A_post_hoc_testing_workflow",
-            "mba_tpu_torch.tools.synth_study"} <= set(names)
+            "mba_tpu_torch.tools.synth_study",
+            "mba_tpu_torch.pipeline.statistical_reporting",
+            "mba_tpu_torch.workflows.statistics_report_workflow",
+            "mba_tpu_torch.pipeline.heterogeneity_modelling",
+            "mba_tpu_torch.workflows.descriptive_statistics_workflow",
+            "mba_tpu_torch.workflows.time_alignment_validation_workflow",
+            "mba_tpu_torch.pipeline.music_control",
+            "mba_tpu_torch.workflows.music_feature_extraction_workflow",
+            } <= set(names)
     code = (f"import importlib, sys\n"
             f"for name in {names!r}:\n"
             f"    importlib.import_module(name)\n"

@@ -162,10 +162,16 @@ def test_each_package_reads_the_others_artifacts(frames, artifacts):
 
 
 @pytest.fixture(scope="module")
-def omnibus(trees, frames, tmp_path_factory):
+def omnibus_dir(tmp_path_factory):
+    """The omnibus workflows' output directories, one per package."""
+    return tmp_path_factory.mktemp("omnibus")
+
+
+@pytest.fixture(scope="module")
+def omnibus(trees, frames, omnibus_dir):
     """Both packages' omnibus on the port's s4 frames, saved as
     ``build_combined_statistics_frame(save=True)`` saves them."""
-    out = tmp_path_factory.mktemp("omnibus")
+    out = omnibus_dir
     feat = trees["port"] / "data" / "precomputed_features"
     for n_seg, frame in frames[("port", "port")].items():
         frame.to_csv(feat / filemgmt.file_title(
@@ -313,8 +319,7 @@ def test_post_hoc_workflow_matches_jax(trees, omnibus, tmp_path):
     """The RQ-A post-hoc workflow: its CBPA batch configs are the JAX
     package's (plus ``device``); its phase-average figures draw from the
     same maps (over time: the study's 20-s trials hold no full force cycle
-    after the default one-cycle offset); the heterogeneity modelling is
-    not ported and refuses before anything runs."""
+    after the default one-cycle offset)."""
     from mba_tpu.workflows import \
         statistics_RQ_A_post_hoc_testing_workflow as JPH
     from mba_tpu_torch.workflows import \
@@ -338,8 +343,134 @@ def test_post_hoc_workflow_matches_jax(trees, omnibus, tmp_path):
             sorted(p.name[20:] for p in out.glob("*.png")))
     assert_same(figs["port"], figs["jax"])
     assert len(figs["port"][1]) == 2
-    with pytest.raises(NotImplementedError, match="A8b"):
-        TPH.run_post_hoc(root, tmp_path, tmp_path, exp, device="cpu")
+    assert "NotImplementedError" not in TPH.__doc__
+
+
+HETEROGENEITY_CSVS = ("Heterogeneity Responder Summary",
+                      "Heterogeneity MI Results Raw",
+                      "Heterogeneity MI Summary",
+                      "Heterogeneity Subject Clusters",
+                      "Heterogeneity Silhouette Scores")
+
+
+@pytest.fixture(scope="module")
+def post_hoc(trees, omnibus, omnibus_dir, tmp_path_factory):
+    """``run_post_hoc`` of each package, the port's with ``device="cpu"``,
+    on the port's omnibus directory completed with the LOSO influence and
+    the subject-effect summary of the port's omnibus results.
+
+    At its defaults it stops in the CBPA batch on this tree, the same in
+    both packages: the study's 20-s trials hold no full force cycle after
+    the one-cycle offset, so no subject gives a phase-normalised contrast
+    (and the synthetic study plays no "Groovy" trial).  So each package
+    first runs the batch's contrasts of the categories the study plays
+    over time (12 of 16; 1 000 permutations, so every sign flip of 4
+    subjects) into its output directory, then ``run_post_hoc`` at its
+    defaults but for the batch: the phase figures and the heterogeneity
+    modelling."""
+    from mba_tpu.workflows import \
+        statistics_RQ_A_post_hoc_testing_workflow as JPH
+    from mba_tpu_torch.pipeline import statistical_modelling as TStat
+    from mba_tpu_torch.workflows import \
+        statistics_RQ_A_post_hoc_testing_workflow as TPH
+    root = trees["port"]
+    feat = root / "data" / "precomputed_features"
+    exp = root / "data" / "experiment_results"
+    stats_dir = omnibus_dir / "port"
+    TStat.run_influence_analysis([("CMC_Flexor_max_beta", 1, 1)],
+                                 omnibus["port"], feat, stats_dir,
+                                 TA.fetch_level_definitions)
+    base = pd.read_csv(filemgmt.most_recent_file(
+        feat, ".csv", ["Combined Statistics 1seg"]))
+    TStat.create_subject_effect_summary(
+        omnibus["port"].to_dict("records"), base, stats_dir,
+        TA.fetch_level_definitions(False))
+    out = tmp_path_factory.mktemp("post_hoc")
+    for name, mod, kw in (("port", TPH, {"device": "cpu"}), ("jax", JPH, {})):
+        with pytest.raises(RuntimeError, match="No valid subjects"):
+            mod.run_post_hoc(root, out / "defaults", stats_dir, exp, **kw)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            mod.run_batch([c for c in mod.build_cbpa_configs(
+                root, out / name, use_phase_normalization=False, **kw)
+                if c.condition_A != "Groovy"])
+            mod.run_post_hoc(root, out / name, stats_dir, exp,
+                             run_cbpa_batch=False, **kw)
+    return {"port": out / "port", "jax": out / "jax", "omnibus": stats_dir}
+
+
+def _newest(directory, name):
+    path = filemgmt.most_recent_file(directory, ".csv", [name])
+    return pd.read_csv(path) if path.stat().st_size > 1 else pd.DataFrame()
+
+
+@pytest.mark.parametrize("name", HETEROGENEITY_CSVS)
+def test_post_hoc_heterogeneity_matches_jax(post_hoc, name):
+    """``run_post_hoc`` at its defaults runs the heterogeneity modelling:
+    each of its CSVs equal to the JAX package's, exactly.  With 4
+    subjects no MI score reaches the summary's 0.05 and no k keeps two
+    subjects a cluster (the fallback k = 2 has no silhouette), so those
+    two CSVs are empty in both packages.  The Level-0 rows count no
+    subject in either (ROADMAP C12): the summary's bool conditions come
+    back from its CSV as the strings 'True'/'False'."""
+    got, want = (_newest(post_hoc[k], name) for k in ("port", "jax"))
+    pd.testing.assert_frame_equal(got, want)
+    if name in ("Heterogeneity MI Summary", "Heterogeneity Silhouette Scores"):
+        assert got.empty
+    else:
+        assert len(got) > 0
+    if name == "Heterogeneity Responder Summary":
+        assert (got.loc[got["Level"] == "lvl_0", "N_Subjects"] == 0).all()
+        happy = got[(got["Condition"] == "Happy")
+                    & (got["Dependent_Variable"] == "CMC_Flexor_max_beta")]
+        assert happy["N_Subjects"].tolist() == [N_SUBJECTS]
+    if name == "Heterogeneity Subject Clusters":
+        assert sorted(got["Subject_ID"]) == list(range(N_SUBJECTS))
+        assert got["Cluster"].nunique() == 2
+    figures = sorted(p.name[20:] for p in post_hoc["port"].glob(
+        "*Heterogeneity*.png"))
+    assert figures == sorted(p.name[20:] for p in post_hoc["jax"].glob(
+        "*Heterogeneity*.png")) == ["Heterogeneity Combined Clustering.png"]
+
+
+def test_post_hoc_report_matches_jax(post_hoc, tmp_path):
+    """``build_report`` of each package on the shared omnibus directory:
+    on one post-hoc directory, one Markdown text, line 2 (the timestamp)
+    masked.  On each package's own post-hoc outputs the texts differ only
+    in CBPA rows, where the JAX package's cluster p-value can be lower at
+    a contrast's largest cluster (ROADMAP C10); the two CBPA summaries
+    agree in every other column."""
+    from mba_tpu.workflows import statistics_report_workflow as JRW
+    from mba_tpu_torch.workflows import statistics_report_workflow as TRW
+
+    def report(module, levels, post_hoc_dir, name):
+        path = module.build_report(
+            post_hoc["omnibus"], post_hoc_dir, tmp_path / name, "RQ_A",
+            level_definitions=levels.fetch_level_definitions(False),
+            fdr_levels_to_correct=[2, 3])
+        lines = path.read_text(encoding="utf-8").splitlines()
+        assert lines[1].startswith("*Generated: ")
+        return lines[:1] + lines[2:]
+
+    texts = {name: report(module, levels, post_hoc["port"], name)
+             for name, module, levels in (("port", TRW, TA),
+                                          ("jax", JRW, JA))}
+    assert texts["port"] == texts["jax"]
+    own = report(JRW, JA, post_hoc["jax"], "jax_own")
+    assert len(own) == len(texts["port"])
+    differ = [(a, b) for a, b in zip(texts["port"], own) if a != b]
+    assert all(a.startswith("| CMC_") and b.startswith("| CMC_")
+               for a, b in differ)
+    cbpa = [_newest(post_hoc[k], "CBPA Combined Cluster Summary")
+            for k in ("port", "jax")]
+    rest = [c for c in cbpa[0].columns if c not in ("p_value", "significant")]
+    pd.testing.assert_frame_equal(cbpa[0][rest], cbpa[1][rest])
+    body = "\n".join(texts["port"])
+    for section in ("## Comparison Levels", "## Subject Clusters",
+                    "### CBPA clusters", "### Subject heterogeneity"):
+        assert section in body, section
+    for hypothesis, _ in OMNIBUS_HYPOTHESES:
+        assert texts["port"].count(f"## {hypothesis}") == 1, hypothesis
 
 
 def test_cbpa_figure_is_drawn(trees, omnibus, tmp_path):
