@@ -108,7 +108,25 @@ result):
    ``compute_all_musical_features`` on the card and on the CPU: the STFT
    magnitudes within tests/test_torch_music.py's tolerance, the BPM and
    the onset count equal, the BPM within 2 of the planted tempo;
-12. one JSON line describing the kernels: per kernel its launches on its
+12. the multi-device layer (``mba_tpu_torch.parallel`` and the nulls'
+   ``mesh=``): (a) a world of one NCCL rank on the card, with the launch
+   counts set to 0 before and read after: ``cohort_multitaper_msc``
+   (jackknife, EMG max-pool) on (5)'s 12-subject cohort,
+   ``cohort_msc_rotation_null(mesh=…, coeff_engine='pallas')`` at 10 000
+   surrogates on it, ``time_sharded_msc`` of its subject 0 and config
+   4's phase null: the cohort CMC equal to each subject's
+   ``multitaper_msc`` and the time-sharded CMC to subject 0's within
+   5e-5, the nulls' observed maps equal to the unsharded ones, the
+   planted coupling at p_fwe < 0.01 and config 4 at p_fwe ≥ 0.01; B1,
+   B2, B3 and threefry launched; (b) two gloo ranks spawned on the one
+   card: the same three calls on 4 subjects × 30 s × 64×64 at 2 000
+   surrogates (each rank's calls timed and its launches counted), then
+   the four calls at 3 subjects × 8 s × 4×4 on the card and on the CPU
+   in the same ranks: CMC within 5e-5 (the CIs within
+   ``cuda_msc.ci_tolerance``), the rotation null's maxima within the
+   gram tolerance, the phase null's within 1e-4/5e-5, ``p_fwe`` equal.
+   A rank that fails, or a join past its limit, fails the phase;
+13. one JSON line describing the kernels: per kernel its launches on its
    main path (and on every path, ``launches_by_path``), its error
    against the plain version, CUDA-event times of the kernel and the
    plain version, its bound (the larger of the bytes it must move over
@@ -293,6 +311,11 @@ ALIGN_HEAD_SEC = 300.0
 # it; the STFT card against CPU at tests/test_torch_music.py's tolerance
 MUSIC_SR, MUSIC_SECONDS, MUSIC_BPM = 44100, 120.0, 120.0
 MUSIC_SYNCOPATION, MUSIC_BPM_TOL = 0.75, 2.0
+MESH_RANKS = 2                  # gloo ranks sharing the one card
+MESH_SUBJECTS, MESH_SECONDS, MESH_SURROGATES = 4, 30.0, 2000
+MESH_SMALL = (3, 8.0, 4)        # subjects, seconds, channels: card vs CPU
+MESH_SMALL_SURROGATES, MESH_SMALL_CHUNK = 1000, 250
+MESH_PG_TIMEOUT_SEC, MESH_JOIN_SEC = 300, 420
 STFT_RTOL, STFT_ATOL = 1e-5, 1e-6      # atol × the spectrum's maximum
 
 
@@ -1156,10 +1179,7 @@ def run_phase_null(device) -> dict:
     histogram on, after one warm chunk.  Uncoupled white noise
     (bench.py:209-212) must give p_fwe ≥ 0.01; a pair sharing a
     stochastic 15-30 Hz drive, 1 000 surrogates, p_fwe < 0.01."""
-    n = int(FS * SECONDS)
-    rng = np.random.default_rng(3)
-    eeg = rng.standard_normal((n, 1)).astype(np.float32)
-    emg = rng.standard_normal((n, 1)).astype(np.float32)
+    eeg, emg = config4_pair()
     kw = dict(window_length_sec=WINDOW_SEC, surrogate_chunk=PHASE_CHUNK,
               device=device)
     TSu.msc_phase_randomized_null(eeg, emg, FS, n_surrogates=PHASE_CHUNK,
@@ -1189,6 +1209,8 @@ def run_phase_null(device) -> dict:
         else:
             _require(res["p_fwe"] < 0.01, f"phase null coupled: p_fwe "
                      f"{res['p_fwe']}, the coupling was not detected")
+        if name == "uncoupled":
+            observed = res["observed"]
         out[name] = {"wall_sec": wall, "n_surrogates": n_surr,
                      "p_fwe": res["p_fwe"],
                      "observed_max": res["observed_max"],
@@ -1196,7 +1218,15 @@ def run_phase_null(device) -> dict:
                                            .max()),
                      "timings": res["timings"],
                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    return out
+    return out, observed
+
+
+def config4_pair() -> tuple:
+    """bench.py config 4's uncoupled pair (bench.py:209-212)."""
+    rng = np.random.default_rng(3)
+    n = int(FS * SECONDS)
+    return (rng.standard_normal((n, 1)).astype(np.float32),
+            rng.standard_normal((n, 1)).astype(np.float32))
 
 
 def ecg_train(n, fs, rng) -> np.ndarray:
@@ -2412,6 +2442,296 @@ def run_music(device) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+def _timed(fn, *args, **kw):
+    """(result, seconds, launches during the call) on the host clock,
+    the card synchronized on both sides."""
+    torch.cuda.synchronize()
+    before = launches()
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    after = launches()
+    return out, sec, {k: after[k] - before[k] for k in after}
+
+
+def mesh_calls(mesh, cohort, n_surrogates, phase_pair=None) -> dict:
+    """The mesh paths on ``mesh`` with the main path's settings: the
+    cohort CMC (jackknife, EMG max-pool), the rotation null with
+    ``coeff_engine='pallas'``, the time-sharded CMC of subject 0 and, if
+    given, the phase null of ``phase_pair`` (config 4's chunking).
+    Returns each result with its seconds and launches."""
+    from mba_tpu_torch.parallel import (cohort_multitaper_msc,
+                                        time_sharded_msc)
+    eeg, emg = cohort
+    cmc_kw = dict(nw=NW, window_length_sec=WINDOW_SEC, overlap_frac=OVERLAP,
+                  use_jackknife=True, aggregate_emg_max=True)
+    calls = {}
+    calls["cohort_cmc"] = _timed(cohort_multitaper_msc, mesh, eeg, emg, FS,
+                                 **cmc_kw)
+    calls["rotation_null"] = _timed(
+        TN.cohort_msc_rotation_null, eeg, emg, FS, mesh=mesh,
+        coeff_engine="pallas", n_surrogates=n_surrogates, nw=NW,
+        window_length_sec=WINDOW_SEC, overlap_frac=OVERLAP, band=BAND,
+        surrogate_chunk=SURROGATE_CHUNK)
+    calls["time_sharded_cmc"] = _timed(time_sharded_msc, mesh, eeg[0], emg[0],
+                                       FS, **cmc_kw)
+    if phase_pair is not None:
+        calls["phase_null"] = _timed(
+            TSu.msc_phase_randomized_null, *phase_pair, FS, mesh=mesh,
+            n_surrogates=PHASE_SURROGATES, window_length_sec=WINDOW_SEC,
+            surrogate_chunk=PHASE_CHUNK)
+    return calls
+
+
+def _mesh_summary(calls) -> dict:
+    out = {}
+    for name, (res, sec, n) in calls.items():
+        out[name] = {"sec": sec, "launches": n}
+        if "p_fwe" in res:
+            out[name]["p_fwe"] = res["p_fwe"]
+            t = res.get("metadata", res).get("timings", {})
+            out[name].update({k: t[k] for k in ("precompute_sec",
+                                                "null_sec", "coeffs_sec",
+                                                "upload_sec") if k in t})
+    return out
+
+
+def run_mesh_world1(cohort, observed_pallas, phase_observed) -> dict:
+    """(a): one NCCL rank on the card, the main path's cohort at full
+    width (module docstring, phase 12)."""
+    import datetime as _dt
+    import torch.distributed as dist
+    from mba_tpu_torch.parallel import make_mesh
+
+    import shutil
+
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(store_dir, "store"), 1),
+            rank=0, world_size=1,
+            timeout=_dt.timedelta(seconds=MESH_PG_TIMEOUT_SEC))
+        try:
+            mesh = make_mesh()
+            _require(tuple(mesh.mesh.shape) == (1, 1),
+                     f"world-1 mesh {tuple(mesh.mesh.shape)}")
+            reset_launches()
+            calls = mesh_calls(mesh, cohort, N_SURROGATES, config4_pair())
+            counts = launches()
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+    for k in ("msc_jackknife", "null_tile", "coeff_pairs", "threefry"):
+        _require(counts[k] > 0, f"the world-1 mesh path did not launch "
+                 f"{k}: {counts}")
+    cmc, rot, ts, ph = (calls[k][0] for k in (
+        "cohort_cmc", "rotation_null", "time_sharded_cmc", "phase_null"))
+    kw = dict(nw=NW, window_length_sec=WINDOW_SEC, overlap_frac=OVERLAP,
+              use_jackknife=True, aggregate_emg_max=True,
+              apply_independence_threshold=False, device="cuda")
+    err = {"cohort_cmc": 0.0, "time_sharded_cmc": 0.0}
+    for j in range(cohort[0].shape[0]):
+        ref = TC.multitaper_msc(cohort[0][j], cohort[1][j], FS, **kw)
+        for key in ("coherence_raw", "coherence_ci_lower",
+                    "coherence_ci_upper"):
+            d = float(np.abs(cmc[key][j] - ref[key]).max())
+            err["cohort_cmc"] = max(err["cohort_cmc"], d)
+            if j == 0:
+                err["time_sharded_cmc"] = max(
+                    err["time_sharded_cmc"],
+                    float(np.abs(ts[key] - ref[key]).max()))
+    for name, e in err.items():
+        _require(e <= MSC_ATOL, f"mesh {name} against multitaper_msc: {e}")
+    _require_close_observed(rot["observed"], observed_pallas,
+                            "mesh rotation null observed vs unsharded")
+    _require(rot["p_fwe"] < 0.01, f"mesh rotation null p_fwe "
+             f"{rot['p_fwe']}: the planted coupling was not detected")
+    _require(rot["max_stat"].shape == (N_SURROGATES,), "mesh null shape")
+    _require(bool(np.array_equal(ph["observed"], phase_observed)),
+             "mesh phase null observed differs from the unsharded one")
+    _require(ph["p_fwe"] >= 0.01, f"mesh phase null (config 4, uncoupled) "
+             f"p_fwe {ph['p_fwe']} < 0.01")
+    return {"calls": _mesh_summary(calls), "launches": counts,
+            "max_abs_err": err,
+            "rotation_observed_max_abs_err": float(
+                np.abs(rot["observed"] - observed_pallas).max())}
+
+
+def _small_mesh_results(mesh) -> dict:
+    """The four mesh calls at MESH_SMALL on ``mesh``'s device."""
+    from mba_tpu_torch.parallel import (cohort_multitaper_msc,
+                                        time_sharded_msc)
+    J, sec, ch = MESH_SMALL
+    eeg, emg = make_cohort(J, sec, ch, ch, seed=21)
+    cmc_kw = dict(nw=NW, window_length_sec=WINDOW_SEC, overlap_frac=OVERLAP,
+                  use_jackknife=True)
+    return {
+        "cohort_cmc": cohort_multitaper_msc(mesh, eeg, emg, FS, **cmc_kw),
+        "time_sharded_cmc": time_sharded_msc(mesh, eeg[0], emg[0], FS,
+                                             **cmc_kw),
+        "rotation_null": TN.cohort_msc_rotation_null(
+            eeg, emg, FS, mesh=mesh, coeff_engine="pallas",
+            n_surrogates=MESH_SMALL_SURROGATES, nw=NW,
+            window_length_sec=WINDOW_SEC, overlap_frac=OVERLAP, band=BAND,
+            surrogate_chunk=MESH_SMALL_CHUNK),
+        "phase_null": TSu.msc_phase_randomized_null(
+            eeg[0][:, :1], emg[0][:, :1], FS, mesh=mesh,
+            n_surrogates=MESH_SMALL_SURROGATES, window_length_sec=WINDOW_SEC,
+            surrogate_chunk=MESH_SMALL_CHUNK),
+    }
+
+
+def _mesh_rank(rank: int, n_ranks: int, work: str) -> None:
+    """One of (b)'s gloo ranks on the card (spawned).  Its host seconds
+    go into ``step_sec``: from its start to a built mesh, the cohort's
+    synthesis, the timed calls, and the small calls on the card and on
+    the CPU."""
+    import datetime as _dt
+    import pickle
+    import torch.distributed as dist
+    from mba_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    step = {}
+
+    def lap(name):
+        nonlocal t0
+        step[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    # the ranks share the machine's cores for the CPU half of the check
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // n_ranks))
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(work, "store"), n_ranks),
+        rank=rank, world_size=n_ranks,
+        timeout=_dt.timedelta(seconds=MESH_PG_TIMEOUT_SEC))
+    try:
+        _build.load_library()
+        mesh = make_mesh()
+        cpu_mesh = make_mesh(device_type="cpu")
+        lap("start_to_mesh")
+        cohort = make_cohort(MESH_SUBJECTS, MESH_SECONDS, N_EEG, N_EMG)
+        lap("cohort")
+        calls = mesh_calls(mesh, cohort, MESH_SURROGATES)
+        lap("timed_calls")
+        card = _small_mesh_results(mesh)
+        torch.cuda.synchronize()
+        lap("small_card")
+        cpu = _small_mesh_results(cpu_mesh)
+        lap("small_cpu")
+        out = {"device": f"cuda:{torch.cuda.current_device()}",
+               "calls": _mesh_summary(calls), "step_sec": step,
+               "rotation_max_stat": calls["rotation_null"][0]["max_stat"],
+               "card": card, "cpu": cpu}
+        with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _require_small_mesh_close(card, cpu, what) -> dict:
+    """(b)'s card results against the CPU ranks' (docstring, phase 12)."""
+    errs = {}
+    eeg, emg = make_cohort(*MESH_SMALL[:2], MESH_SMALL[2], MESH_SMALL[2],
+                           seed=21)
+    ws = int(WINDOW_SEC * FS)
+    starts, _ = window_grid(eeg.shape[1], ws, int(ws * (1 - OVERLAP)), FS)
+    tap = torch.as_tensor(filtered_tapers(ws, NW, 0.9), dtype=torch.float32)
+    for name, subjects in (("cohort_cmc", range(eeg.shape[0])),
+                           ("time_sharded_cmc", [0])):
+        g, r = card[name], cpu[name]
+        for j in subjects:
+            e, m = (TC.tapered_rfft(frame_signal(torch.from_numpy(x[j]),
+                                                 starts, ws), tap)
+                    for x in (eeg, emg))
+            tol = cuda_msc.ci_tolerance(
+                cuda_msc.loo_coherence_max(e, m).numpy(), MSC_ATOL)
+            for key in ("coherence_raw", "coherence_ci_lower",
+                        "coherence_ci_upper"):
+                gj = g[key][j] if name == "cohort_cmc" else g[key]
+                rj = r[key][j] if name == "cohort_cmc" else r[key]
+                d = np.abs(gj - rj)
+                bound = MSC_ATOL if key == "coherence_raw" else tol
+                errs[f"{name}:{key}"] = max(errs.get(f"{name}:{key}", 0.0),
+                                            float(d.max()))
+                _require(bool((d <= bound).all()),
+                         f"{what} {name} {key}: card vs cpu {float(d.max())}")
+    rot_g, rot_c = card["rotation_null"], cpu["rotation_null"]
+    _require_close_observed(rot_g["observed"], rot_c["observed"],
+                            f"{what} rotation null observed")
+    _require_close_observed(rot_g["max_stat"], rot_c["max_stat"],
+                            f"{what} rotation null max_stat")
+    _require(rot_g["p_fwe"] == rot_c["p_fwe"],
+             f"{what} rotation null p_fwe {rot_g['p_fwe']} vs "
+             f"{rot_c['p_fwe']}")
+    ph_g, ph_c = card["phase_null"], cpu["phase_null"]
+    _require_close(f"{what} phase null max_stat", ph_g["max_stat"],
+                   ph_c["max_stat"], PHASE_MAX_RTOL, PHASE_MAX_ATOL)
+    _require(ph_g["p_fwe"] == ph_c["p_fwe"],
+             f"{what} phase null p_fwe {ph_g['p_fwe']} vs {ph_c['p_fwe']}")
+    errs["rotation_max_stat"] = float(np.abs(rot_g["max_stat"]
+                                             - rot_c["max_stat"]).max())
+    errs["phase_max_stat"] = float(np.abs(ph_g["max_stat"]
+                                          - ph_c["max_stat"]).max())
+    return errs
+
+
+def run_mesh_two_ranks() -> dict:
+    """(b): MESH_RANKS gloo ranks spawned on the one card (docstring,
+    phase 12).  Any rank's failure, or a join past MESH_JOIN_SEC, fails
+    the phase; no rank outlives it."""
+    import pickle
+    import shutil
+    import torch.multiprocessing as mp
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh2_")
+    try:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_mesh_rank, args=(MESH_RANKS, work),
+                                 nprocs=MESH_RANKS, join=False,
+                                 start_method="spawn")
+        try:
+            while not ctx.join(timeout=5.0):
+                _require(time.perf_counter() - t0 < MESH_JOIN_SEC,
+                         f"mesh ranks did not finish in {MESH_JOIN_SEC} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join(timeout=10)
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(work, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for r, res in enumerate(ranks):
+        _require(res["device"] == "cuda:0", f"rank {r} ran on "
+                 f"{res['device']}")
+        n = {k: sum(c["launches"][k] for c in res["calls"].values())
+             for k in ("msc_jackknife", "null_tile", "coeff_pairs",
+                       "threefry")}
+        _require(all(v > 0 for v in n.values()),
+                 f"rank {r} did not launch every kernel: {n}")
+        _require(bool(np.array_equal(res["rotation_max_stat"],
+                                     ranks[0]["rotation_max_stat"])),
+                 f"rank {r}'s rotation null differs from rank 0's")
+        _require(res["calls"]["rotation_null"]["p_fwe"] < 0.01,
+                 f"rank {r}: 2-rank rotation null p_fwe "
+                 f"{res['calls']['rotation_null']['p_fwe']}")
+    errs = _require_small_mesh_close(ranks[0]["card"], ranks[0]["cpu"],
+                                     "2 ranks small")
+    launches_sum = {k: sum(c["launches"][k] for res in ranks
+                           for c in res["calls"].values())
+                    for k in ranks[0]["calls"]["cohort_cmc"]["launches"]}
+    return {"wall_sec": wall, "ranks": [res["calls"] for res in ranks],
+            "step_sec": [res["step_sec"] for res in ranks],
+            "launches": launches_sum, "small_card_vs_cpu_max_abs_err": errs}
+
+
 def reset_launches() -> None:
     cuda_msc.msc_jackknife.launches = 0
     cuda_null.null_tile.launches = 0
@@ -2520,7 +2840,6 @@ def main() -> int:
 
     pw_cohort = tuple(np.ascontiguousarray(x[..., :PW_CHANNELS])
                       for x in cohort)
-    del cohort
     reset_launches()
     pw, _ = run_null(*pw_cohort, device, n_surrogates=PW_SURROGATES,
                      rotation_mode="per_window")
@@ -2575,7 +2894,7 @@ def main() -> int:
                     "emg_channels": N_EMG, **narrow}))
     torch.cuda.empty_cache()
     reset_launches()
-    phase = run_phase_null(device)
+    phase, phase_observed = run_phase_null(device)
     n_phase = launches()
     _require(n_phase["threefry"] > 0, "the phase null did not launch "
              "threefry")
@@ -2625,11 +2944,23 @@ def main() -> int:
                     "sec": time.perf_counter() - t0, **music,
                     "launches": n_music}))
 
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh1 = run_mesh_world1(cohort, observed_pallas, phase_observed)
+    mesh1["sec"] = time.perf_counter() - t0
+    del cohort
+    torch.cuda.empty_cache()
+    mesh2 = run_mesh_two_ranks()
+    log(json.dumps({"phase": "mesh", "card": card,
+                    "sec": time.perf_counter() - t0, "world_1_nccl": mesh1,
+                    "two_gloo_ranks_one_card": mesh2}))
+
     paths = {"cmc": n_cmc, "null_gram": n_gram, "null_pallas": n_pallas,
              "null_per_window": n_pw, "fft_null": n_fft,
              "feature_extraction": n_feat, "preprocessing": n_pre,
              "phase_null": n_phase, "statistics": n_stat,
-             "pipeline": n_pipe, "music": n_music}
+             "pipeline": n_pipe, "music": n_music,
+             "mesh": mesh1["launches"], "mesh_2_ranks": mesh2["launches"]}
     by_path = lambda k: {p: n[k] for p, n in paths.items()}
     kernels = [
         {"name": "msc_jackknife", "route": "cuda",

@@ -40,7 +40,15 @@ The slices so far:
   enriched serial frame, the "Combined Statistics Nseg" frames
   (``workflows.statistics_data_preparation_workflow``), the CBPA contrast
   assembly and batch (``pipeline.cbpa``, its null on the card) with the
-  RQ-A post-hoc workflow, and ``tools.synth_study``'s study tree.
+  RQ-A post-hoc workflow, and ``tools.synth_study``'s study tree;
+- the report, heterogeneity, descriptive, time-alignment and music
+  workflows of the study's last stage and its side analyses;
+- the multi-device layer, ``parallel`` (a ``torch.distributed``
+  ``DeviceMesh``, the cohort and time-sharded CMC) and the nulls'
+  ``mesh=``: every rank computes its block and gets the whole result;
+- the acquisition hardware layer (``acquisition``, ``native``'s serial
+  shim, ``pipeline.sensor_calibration``), host code that never touches
+  the card.
 
 The package imports torch, numpy and scipy (pandas only where a frame or
 an experiment log is read, matplotlib only where a figure is drawn,

@@ -44,8 +44,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from mba_tpu_torch import _dist
 from mba_tpu_torch._device import (entry_device, not_ported, synchronize,
                                    to_device)
+from mba_tpu_torch._dist import check_mesh, flat_index, mesh_entry_device
 from mba_tpu_torch.ops import cuda_prng, prng
 from mba_tpu_torch.ops.cuda_coeffs import _F32_TINY, K_MAX as COEFF_K_MAX
 from mba_tpu_torch.ops.cuda_null import (feature_rows, null_epilogue,
@@ -303,18 +305,35 @@ def cohort_msc_rotation_null(
     ``overlap_upload=True`` uploads and processes one subject at a time;
     ``False`` uploads the whole cohort first, then runs the passes.
 
-    Not ported yet (each raises ``NotImplementedError``): ``mesh``,
+    ``mesh``: a ``DeviceMesh`` of ``parallel.make_mesh`` (anything else
+    raises ``TypeError``); every rank calls with the same arguments and
+    gets the whole result.  The coefficient pass is sharded by subject
+    over the mesh's flat ranks (the cohort padded by repeating its last
+    subject; each rank uploads and runs only its own subjects, one at a
+    time, whatever ``overlap_upload`` says), then all-gathered.  Each
+    round of the surrogate loop, flat rank r draws its chunk from
+    ``split(sub, n_ranks)[r]`` as the JAX mesh does, runs the surrogate
+    tile, and the ranks all-reduce their count increments and all-gather
+    their maxima: ``n_ranks · surrogate_chunk`` surrogates a round.  The
+    mesh decides the device (a ``device`` naming another raises), and
+    the per-window mode refuses a mesh, as in the JAX package.
+
+    Not ported yet (each raises ``NotImplementedError``):
     ``compute_dtype`` other than float32, a ``transfer_dtype`` other
     than float32 or the ADC-count passthrough, and ``coeff_engine=
     'pallas'`` on the card with more than 8 tapers (the CPU runs the
     plain pair pass at any K).
     """
-    if mesh is not None:
-        raise not_ported("mesh (surrogates sharded over devices)", "A10")
     if rotation_mode not in ("shared", "per_window"):
         raise ValueError("rotation_mode must be 'shared' or 'per_window', "
                          f"got {rotation_mode!r}")
     per_window = rotation_mode == "per_window"
+    if mesh is not None:
+        check_mesh(mesh)
+        if per_window:
+            raise ValueError("rotation_mode='per_window' does not support "
+                             "mesh sharding; use the shared mode or run "
+                             "single-device")
     if coeff_engine not in ("auto", "gram", "pallas", "xla"):
         raise ValueError("coeff_engine must be 'auto', 'gram', 'pallas' "
                          f"or 'xla', got {coeff_engine!r}")
@@ -332,7 +351,10 @@ def cohort_msc_rotation_null(
             raise not_ported(f"transfer_dtype={transfer_dtype!r} "
                               "(host quantized upload)",
                               "'Unsupported options'")
-    device = entry_device(device, eeg_cohort, emg_cohort)
+    if mesh is None:
+        device = entry_device(device, eeg_cohort, emg_cohort)
+    else:
+        device = mesh_entry_device(mesh, device)
 
     eeg_shape = tuple(np.shape(eeg_cohort))
     emg_shape = tuple(np.shape(emg_cohort))
@@ -407,9 +429,19 @@ def cohort_msc_rotation_null(
     t_up = t_co = 0.0
     upload_bytes = 0
     bases, coefs = [], []
-    if overlap_upload and not per_window:
-        # one subject at a time: upload, then its coefficient pass
-        for j in range(J):
+    if mesh is not None or (overlap_upload and not per_window):
+        # one subject at a time: upload, then its coefficient pass.  Under
+        # a mesh (cohort_null.py:667-713, :1115-1155) flat rank r takes
+        # subjects r·jl … (r+1)·jl − 1 of the cohort padded to n_ranks·jl
+        # by repeating the last subject; the passes are gathered and the
+        # pad rows dropped before the epilogue
+        if mesh is None:
+            subjects = range(J)
+        else:
+            jl = -(-J // mesh.size())
+            r = flat_index(mesh)
+            subjects = [min(j, J - 1) for j in range(r * jl, (r + 1) * jl)]
+        for j in subjects:
             t0 = time.perf_counter()
             eeg_j = to_device(eeg_cohort[j], device)
             emg_j = to_device(emg_cohort[j], device)
@@ -421,6 +453,14 @@ def cohort_msc_rotation_null(
             bases.append(b)
             coefs.append(c)
             del eeg_j, emg_j
+            synchronize(device)
+            t_co += time.perf_counter() - t0
+        if mesh is not None:
+            t0 = time.perf_counter()
+            bases = list(torch.cat(_dist.gather(torch.stack(bases),
+                                                mesh))[:J])
+            coefs = list(torch.cat(_dist.gather(torch.stack(coefs),
+                                                mesh))[:J])
             synchronize(device)
             t_co += time.perf_counter() - t0
     else:
@@ -447,6 +487,8 @@ def cohort_msc_rotation_null(
     t_precompute = time.perf_counter() - t_pre0
     t_stage = dict(upload_sec=round(t_up, 3), coeffs_sec=round(t_co, 3),
                    upload_bytes=int(upload_bytes), coeff_engine=engine)
+    if mesh is not None:
+        t_stage["coeffs_shard_devices"] = mesh.size()
 
     if precompute_only:
         return {
@@ -484,12 +526,20 @@ def cohort_msc_rotation_null(
         if per_window:
             ms, inc = null_chunk_pw(
                 window_phases(sub, Wp, J, chunk, K, nF, device), state)
+        elif mesh is not None:
+            # cohort_null.py:748-800, :1257-1313: this rank's chunk, then
+            # the count increments summed and the maxima gathered
+            rank_key = prng.split(sub, mesh.size())[flat_index(mesh)]
+            ms, inc = null_chunk(
+                draw_phases(rank_key, J, chunk, K, nF, device), state)
+            _dist.psum_(inc)
+            ms = torch.cat(_dist.gather(ms, mesh))
         else:
             ms, inc = null_chunk(draw_phases(sub, J, chunk, K, nF, device),
                                  state)
         counts += inc
         max_stats.append(ms)
-        n_total += chunk
+        n_total += ms.shape[0]
     # surplus draws in the last chunk are equally valid null samples; the
     # per-cell counts are normalised by the true total
     max_stat = torch.cat(max_stats).cpu().numpy()[:n_surrogates]

@@ -24,7 +24,9 @@ import time
 import numpy as np
 import torch
 
+from mba_tpu_torch import _dist
 from mba_tpu_torch._device import entry_device, synchronize, to_device
+from mba_tpu_torch._dist import check_mesh, flat_index, mesh_entry_device
 from mba_tpu_torch.ops import cuda_prng, prng
 from mba_tpu_torch.ops.dpss import filtered_tapers
 from mba_tpu_torch.ops.framing import window_grid
@@ -292,13 +294,19 @@ def msc_phase_randomized_null(
     spectra do not change between surrogates and are computed once.
     ``device``: default the device of a tensor input, else the card
     (``device="cpu"`` for the CPU).
-    ``mesh`` (surrogates sharded over cards) is not ported: ROADMAP A10.
+
+    ``mesh``: a ``DeviceMesh`` of ``parallel.make_mesh`` (anything else
+    raises ``TypeError``), which also decides the device; every rank
+    calls with the same arguments and gets the whole result.  Each
+    round (``surrogate.py:208-239``, ``:386-…``), flat rank r draws a
+    full chunk from ``split(sub, n_ranks)[r]``, the ranks all-reduce
+    their histogram increments and all-gather their maxima, and the
+    round counts ``n_ranks · surrogate_chunk`` surrogates.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "msc_phase_randomized_null(mesh=...) (surrogates sharded over "
-            "cards) is not ported; see ROADMAP A10")
-    device = entry_device(device, eeg, emg)
+        device = mesh_entry_device(check_mesh(mesh), device)
+    else:
+        device = entry_device(device, eeg, emg)
     t_up0 = time.perf_counter()
     eeg_t = to_device(eeg, device).to(torch.float32)
     emg_t = to_device(emg, device).to(torch.float32)
@@ -346,15 +354,23 @@ def msc_phase_randomized_null(
     done = 0
     while done < n_surrogates:
         key, sub = prng.split(key)
+        if mesh is not None:
+            sub = prng.split(sub, mesh.size())[flat_index(mesh)]
         phases = draw_chunk_phases(sub, chunk, emg_f.shape[0], n_emg, device)
         spectra = _surrogate_chunk(phases, emg_f, eeg_spec, frame_idx,
                                    tapers, inv_fs_n, n_samples, width)
-        take = min(chunk, n_surrogates - done)
         ms = (spectra * fmask[None, :, None, None]).amax(dim=(1, 2, 3))
+        if hist is not None and mesh is None:
+            _hist_accumulate(spectra, hist)
+        elif hist is not None:      # the ranks' increments, summed
+            hist += _dist.psum_(_hist_accumulate(spectra,
+                                                torch.zeros_like(hist)))
+        if mesh is not None:
+            ms = torch.cat(_dist.gather(ms, mesh))
+        take = min(ms.shape[0], n_surrogates - done)
         max_stats.append(ms[:take])
         if hist is not None:
-            _hist_accumulate(spectra, hist)
-            n_hist_total += chunk
+            n_hist_total += ms.shape[0]
         done += take
 
     max_stat = torch.cat(max_stats).cpu().numpy()

@@ -207,6 +207,11 @@ def test_rotation_null_precompute_only_and_adc_passthrough():
 ])
 def test_unsupported_options_raise(kw):
     eeg, emg = _cohort(J=1, n_sec=8.0)
+    if "mesh" in kw:          # a mesh is ported; anything else is refused
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            TN.cohort_msc_rotation_null(eeg, emg, FS, n_surrogates=10,
+                                        device="cpu", **kw)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TN.cohort_msc_rotation_null(eeg, emg, FS, n_surrogates=10,
                                     device="cpu", **kw)

@@ -68,7 +68,8 @@ def _spectra(seed, W, ws, nE, nM, device="cpu", nw=3):
 
 def test_package_imports_neither_jax_nor_mba_tpu():
     """In a fresh interpreter: the pytest process has JAX loaded already
-    (tests/conftest.py), so only a subprocess can tell.  matplotlib and
+    (tests/conftest.py), so only a subprocess can tell; the port's entry
+    script ``torch_entry.py`` is held to it too.  matplotlib and
     sklearn are not loaded either: the port imports them only to draw and
     inside the MI fit, the clustering and the song features' K-means (the
     card machine has neither)."""
@@ -116,9 +117,23 @@ def test_package_imports_neither_jax_nor_mba_tpu():
             "mba_tpu_torch.workflows.time_alignment_validation_workflow",
             "mba_tpu_torch.pipeline.music_control",
             "mba_tpu_torch.workflows.music_feature_extraction_workflow",
+            "mba_tpu_torch.parallel", "mba_tpu_torch.parallel.mesh",
+            "mba_tpu_torch._dist",
+            "mba_tpu_torch.parallel.cohort",
+            "mba_tpu_torch.acquisition",
+            "mba_tpu_torch.acquisition.experiment",
+            "mba_tpu_torch.acquisition.views",
+            "mba_tpu_torch.native", "mba_tpu_torch.native.build",
+            "mba_tpu_torch.pipeline.sensor_calibration",
+            "mba_tpu_torch.utils.str_conversion",
+            "mba_tpu_torch.utils.function_decorators",
+            "mba_tpu_torch.utils.multiprocessing_tools",
+            "mba_tpu_torch.workflows.experiment_workflow",
+            "mba_tpu_torch.workflows.serial_testing_workflow",
             } <= set(names)
+    # torch_entry.py, the port's entry script, beside the package
     code = (f"import importlib, sys\n"
-            f"for name in {names!r}:\n"
+            f"for name in {names + ['torch_entry']!r}:\n"
             f"    importlib.import_module(name)\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0]\n"
             f"             in ('jax', 'jaxlib', 'mba_tpu', 'matplotlib',\n"

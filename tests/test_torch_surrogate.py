@@ -263,7 +263,7 @@ def test_null_on_its_own_generator_detects_coupling():
 
 def test_null_options_that_raise():
     eeg, emg = _coupled(13)
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TS.msc_phase_randomized_null(eeg, emg, 128, n_surrogates=8,
                                      mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="selects no valid"):
