@@ -13,8 +13,8 @@ result):
 2. build the hand-written kernels from ``mba_tpu_torch/csrc`` with nvcc;
 3. each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, with CUDA-event times of both (B3 also
-   in its accumulate form over two chunks, with the registers and spills
-   ``nvcc -Xptxas -v`` reports for each of its K instances);
+   in its accumulate form over two chunks); meanwhile ``nvcc -Xptxas -v``
+   compiles B1 and B3 for the registers and spills of each instance;
 4. the port on a small input on the card against the same call on the
    CPU, where every kernel wrapper runs its plain version;
 5. the main paths at ``bench.py``'s configuration, each with every
@@ -28,6 +28,19 @@ result):
    coefficient pass alone (plain PyTorch, no kernel) on the same cohort.
    Each kernel of a path must have launched; the CMC must peak in the
    planted 15-30 Hz band and each null must detect the planted coupling;
+   then the options phase, its sections timed by ``utils.profiling.
+   StageTimer``: (a) the CMC leg at bench.py:146-149's own settings, an
+   int8 download and an int16 upload, beside the float32 leg (its
+   download ≤ 0.27× and upload ½ the float32 leg's bytes, values within
+   half an int8 step of the float32 leg's per-lane spans plus 1e-4, the
+   peak in the band); (b) (5b)'s null with bench.py:287-290's int16
+   upload (observed map within 1e-5 of (b)'s, p_fwe < 0.01) and (c) with
+   ``compute_dtype=torch.bfloat16`` (p_fwe < 0.01), and B2's bf16
+   instance against its plain version on one chunk; (d) B1 and B3 at
+   nw = 5 (K = 9) and nw = 9 (K = 17, the runtime-K instances) against
+   their plain versions, timed at the main path's shapes; (e) a small
+   ``batch_layout='reference'`` ICA, card against CPU; (f) one B1
+   launch under ``device_trace``, whose trace must hold its kernel;
 6. the per-window rotation null on 12 subjects × 120 s × 8×8 pairs,
    2 000 surrogates, and the full-FFT null on 2 subjects × 12 s × 8×8,
    200 surrogates, whose flop rate sets the CUDA default of
@@ -126,7 +139,9 @@ result):
    ``cuda_msc.ci_tolerance``), the rotation null's maxima within the
    gram tolerance, the phase null's within 1e-4/5e-5, ``p_fwe`` equal.
    A rank that fails, or a join past its limit, fails the phase;
-13. one JSON line describing the kernels: per kernel its launches on its
+13. one JSON line describing the kernels (B2's bf16 instance its own
+   entry, B1 and B3 with their K = 9 and K = 17 checks and the registers
+   and spills of every instance): per kernel its launches on its
    main path (and on every path, ``launches_by_path``), its error
    against the plain version, CUDA-event times of the kernel and the
    plain version, its bound (the larger of the bytes it must move over
@@ -145,11 +160,13 @@ nothing replaced.
 """
 from __future__ import annotations
 
+import atexit
 import datetime
 import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -175,6 +192,7 @@ from mba_tpu_torch.ops.rotation_coeffs import band_spectra
 from mba_tpu_torch.pipeline import preprocessing as TP
 from mba_tpu_torch.pipeline import signal_features as TF
 from mba_tpu_torch.pipeline.cbpa import CMC_EEG_CHANNEL_SUBSET
+from mba_tpu_torch.utils.profiling import StageTimer, annotate, device_trace
 from mba_tpu_torch.workflows import preprocessing_workflow as TPW
 
 REPO = Path(__file__).resolve().parent
@@ -222,7 +240,26 @@ QUANTILE_CELLS = 1e-3   # cells whose null quantile may move by one bin
 # on the CUDA cores and HBM3; a kernel's bound is the larger of its
 # operations and its bytes over these
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12          # tensor cores, dense
 PEAK_HBM_BYTES = 3.35e12
+# the options phase (bench.py's own transfer settings): the CMC leg's int8
+# download and int16 upload (bench.py:146-149) against the float32 leg;
+# the null's int16 upload (bench.py:287-290); the null in bf16; B1 and B3
+# at nw = 5 (K = 9) and nw = 9 (K = 17, the runtime-K instances above
+# the K <= 16 compile-time ones); a small reference-layout ICA
+OPT_DOWNLOAD_SHARE = 0.27   # int8 payload ¼ + per-(freq, EEG) sidecars
+# the int16 upload's rounding of the signal (≤ 2^-16 of each channel's
+# peak, ~4.8 σ here) moved the coherence by up to 2.8e-4 at the main
+# path's shapes (NVIDIA H100 80GB HBM3, 700 W), within OPT_CMC_SLACK, and
+# the CIs further where it moves a near-tied EMG pick or Fisher z
+# amplifies it near 1: 0.013 % of the cells left half a step plus
+# OPT_CMC_SLACK (0.17 % with 1e-4), within OPT_CI_MOVED
+OPT_CMC_SLACK = 5e-4
+OPT_CI_MOVED = 5e-3
+OPT_NULL_OBS_ATOL = 1e-5    # int16 upload: the observed map
+OPT_NWS = (5, 9)
+B1_CMP_WINDOWS = 3          # the plain jackknife's (W, K, F, E, M) tensors
+ICA_REF_SHAPE, ICA_REF_BLOCK, ICA_REF_EPOCHS = (256 * 60, 4), 80, 3
 # the threefry checks: the null's phase draw (J, S, K, F) at the main
 # path's chunk, an odd flat length, and split(key, 1000)
 PRNG_NULL_SHAPE = (N_SUBJECTS, SURROGATE_CHUNK, 5, 175)
@@ -387,11 +424,13 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def roofline(ms: float, flops: float, nbytes: float) -> dict:
-    """The least time the card could take for ``flops`` float32
-    operations and ``nbytes`` moved once, what bounds it, and the share
-    of it that ``ms`` reaches."""
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+def roofline(ms: float, flops: float, nbytes: float,
+             peak_flops: float = PEAK_FP32_FLOPS) -> dict:
+    """The least time the card could take for ``flops`` operations at
+    ``peak_flops`` (float32 on the CUDA cores by default) and ``nbytes``
+    moved once, what bounds it, and the share of it that ``ms``
+    reaches."""
+    t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     bound = max(t_ops, t_bytes)
     return {"bound_ms": bound,
@@ -431,11 +470,12 @@ def _require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def main_path_msc_chunk(eeg, emg, device):
+def main_path_msc_chunk(eeg, emg, device, nw=NW):
     """The tapered spectra of the main path's first window chunk: the
-    exact operands ``multitaper_msc`` hands to the B1 wrapper."""
+    exact operands ``multitaper_msc`` hands to the B1 wrapper (at ``nw``,
+    whose taper count sets the chunk)."""
     ws = int(WINDOW_SEC * FS)
-    tapers = filtered_tapers(ws, NW, 0.9)
+    tapers = filtered_tapers(ws, nw, 0.9)
     K = tapers.shape[0]
     W = TC._auto_chunk(ws, K, eeg.shape[1], emg.shape[1], True, fused=True)
     starts, _ = window_grid(eeg.shape[0], ws, int(ws * (1 - OVERLAP)), FS)
@@ -516,10 +556,10 @@ def check_msc_kernel(eeg, emg, device, reps=10) -> dict:
                           "share_of_bound": full["share_of_bound"]}}
 
 
-def null_check_state(device, K=5, seed=0):
+def null_check_state(device, K=5, seed=0, dtype=torch.float32):
     """Random rotation-null state at the main path's shapes: nF band
     bins of 13-100 Hz at 2-s windows, J subjects, N = E·M cells and
-    P = K(K−1) features."""
+    P = K(K−1) features; coefT in ``dtype``."""
     J, N = N_SUBJECTS, N_EEG * N_EMG
     ws = int(WINDOW_SEC * FS)
     freqs = np.fft.rfftfreq(ws, 1 / FS)
@@ -531,7 +571,7 @@ def null_check_state(device, K=5, seed=0):
     base = 0.1 + 0.2 * torch.rand((nF, N), generator=g, device=device)
     obs = base - 0.05 + 0.25 * torch.rand((nF, N), generator=g,
                                           device=device)
-    return TN.null_state(base, coef, obs), prng.prng_key(seed), K
+    return TN.null_state(base, coef, obs, dtype), prng.prng_key(seed), K
 
 
 def check_null_kernel(device, reps=10) -> dict:
@@ -650,46 +690,97 @@ def check_prng_kernel(device, reps=20) -> dict:
     return out
 
 
-def ptxas_report() -> dict:
-    """Registers and spills of each instance of B3, as ``nvcc -Xptxas -v``
-    reports them for the build's flags: {"K=5 wide": {"registers": ..,
-    "spill_stores": .., "spill_loads": ..}, ...} (bytes for spills);
-    "wide" is the instance whose lanes span 32 EMG channels (M = 64 on the
-    main path), "narrow" the one for fewer."""
-    src = _build.CSRC_DIR / "coeff_pairs.cu"
-    obj = _build.BUILD_DIR / f"ptxas_report.{os.getpid()}.o"
-    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
-           "-o", str(obj), str(src)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=600)
-    finally:
-        obj.unlink(missing_ok=True)
-    _require(proc.returncode == 0, f"nvcc -Xptxas -v failed:\n"
-             f"{proc.stdout}{proc.stderr}")
-    out, k = {}, None
-    for line in (proc.stdout + proc.stderr).splitlines():
-        entry = re.search(r"Compiling entry function '(\S+)'", line)
-        if entry:
-            inst = re.search(r"coeff_pairs_kernelILi(\d+)E\w*?Lb([01])E",
-                             entry.group(1))
-            k = (f"K={inst.group(1)} {('narrow', 'wide')[int(inst.group(2))]}"
-                 if inst else None)
-            continue
-        if k is None:
-            continue
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", line)
-        if spill:
-            out.setdefault(k, {}).update(spill_stores=int(spill.group(1)),
-                                         spill_loads=int(spill.group(2)))
-        used = re.search(r"Used (\d+) registers", line)
-        if used:
-            out.setdefault(k, {})["registers"] = int(used.group(1))
-    _require(sorted(out) == sorted(f"K={k} {w}" for k in range(2, 9)
-                                   for w in ("narrow", "wide")),
-             f"ptxas report lacks an instance: {sorted(out)}")
-    return out
+def _coeff_instance(entry: str):
+    """B3's instance label of a kernel entry name, or None."""
+    m = re.search(r"coeff_pairs_kernelILi(\d+)E\w*?Lb([01])E", entry)
+    if m:
+        return f"K={m.group(1)} {('narrow', 'wide')[int(m.group(2))]}"
+    return "K=any" if "coeff_pairs_rt_kernel" in entry else None
+
+
+def _msc_instance(entry: str):
+    """B1's instance label of a kernel entry name, or None."""
+    m = re.search(r"msc_jackknife_(?:kernelILi(\d+)E|rt_kernelI)Lb([01])E",
+                  entry)
+    if not m:
+        return None
+    return f"K={m.group(1) or 'any'} {('full', 'emg_max')[int(m.group(2))]}"
+
+
+# source: (entry name → instance label, every label expected)
+PTXAS_SOURCES = {
+    "coeff_pairs": (_coeff_instance,
+                    [f"K={k} {w}" for k in range(2, 17)
+                     for w in ("narrow", "wide")] + ["K=any"]),
+    "msc_jackknife": (_msc_instance,
+                      [f"K={k} {w}" for k in [*range(2, 17), "any"]
+                       for w in ("full", "emg_max")]),
+}
+
+
+def ptxas_start() -> dict:
+    """Start ``nvcc -Xptxas -v`` of B3's and B1's sources with the build's
+    flags, one process a source, to run while the card works; collect
+    with :func:`ptxas_report`."""
+    procs = {}
+    for stem in PTXAS_SOURCES:
+        obj = _build.BUILD_DIR / f"ptxas_report.{stem}.{os.getpid()}.o"
+        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
+               "-c", "-o", str(obj), str(_build.CSRC_DIR / f"{stem}.cu")]
+        procs[stem] = (obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, start_new_session=True))
+    atexit.register(_stop, [proc for _, proc in procs.values()])
+    return procs
+
+
+def _stop(procs) -> None:
+    """Kill what is still running of ``procs`` (a phase that failed),
+    with the compilers each nvcc started (its process group)."""
+    for proc in procs:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+
+def ptxas_report(procs: dict) -> dict:
+    """Registers and spills of each instance of B3 and B1 from the
+    processes of :func:`ptxas_start`: {"coeff_pairs": {"K=5 wide":
+    {"registers": .., "spill_stores": .., "spill_loads": ..}, ...},
+    "msc_jackknife": {"K=5 emg_max": ...}} (bytes for spills).  B3's
+    "wide" is the instance whose lanes span 32 EMG channels (M = 64 on
+    the main path), "narrow" the one for fewer; B1's "emg_max" and
+    "full" its two modes; "K=any" the runtime-K instances."""
+    report = {}
+    for stem, (obj, proc) in procs.items():
+        try:
+            text, _ = proc.communicate(timeout=600)
+        finally:
+            obj.unlink(missing_ok=True)
+        _require(proc.returncode == 0, f"nvcc -Xptxas -v {stem} failed:\n"
+                 f"{text}")
+        label_of, expected = PTXAS_SOURCES[stem]
+        out, k = {}, None
+        for line in text.splitlines():
+            entry = re.search(r"Compiling entry function '(\S+)'", line)
+            if entry:
+                k = label_of(entry.group(1))
+                continue
+            if k is None:
+                continue
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                              r"spill loads", line)
+            if spill:
+                out.setdefault(k, {}).update(
+                    spill_stores=int(spill.group(1)),
+                    spill_loads=int(spill.group(2)))
+            used = re.search(r"Used (\d+) registers", line)
+            if used:
+                out.setdefault(k, {})["registers"] = int(used.group(1))
+        _require(sorted(out) == sorted(expected),
+                 f"ptxas report of {stem} lacks an instance: {sorted(out)}")
+        report[stem] = out
+    return report
 
 
 def _coeff_excess(got, ref, wsum, what) -> tuple[dict, dict]:
@@ -705,18 +796,12 @@ def _coeff_excess(got, ref, wsum, what) -> tuple[dict, dict]:
     return errs, excess
 
 
-def check_coeff_kernel(cohort, device, reps=10) -> dict:
-    """B3 against its plain version at the main path's chunk: the first
-    WINDOW_CHUNK windows of the bench cohort's first subject, their
-    weights from the disjoint subset (so half of them are 0), K = 5,
-    13-100 Hz (nF = 175), 64×64.  The sums over the chunk's weight sum
-    within COEFF_RTOL / COEFF_ATOL.  Then the accumulate form, as
-    ``rotation_coeffs_subject`` runs it: the next WINDOW_CHUNK windows
-    added by the kernel into the first chunk's sums (``out=``), against
-    the plain version's ``add_``, over both chunks' weight sum.  The
-    registers and spills nvcc reports for each K go with the times."""
+def coeff_chunks(cohort, device, nw=NW):
+    """The main path's two first B3 chunks at ``nw``: WINDOW_CHUNK
+    windows each of the bench cohort's first subject, weighted by the
+    disjoint subset (half of them 0), 13-100 Hz (nF = 175), 64×64."""
     ws = int(WINDOW_SEC * FS)
-    tapers = torch.as_tensor(filtered_tapers(ws, NW, 0.9),
+    tapers = torch.as_tensor(filtered_tapers(ws, nw, 0.9),
                              dtype=torch.float32, device=device)
     _, lo, hi = TN._band_bins(ws, FS, BAND)
     starts, _ = window_grid(cohort[0].shape[1], ws, int(ws * (1 - OVERLAP)),
@@ -730,7 +815,29 @@ def check_coeff_kernel(cohort, device, reps=10) -> dict:
         e, m = (band_spectra(torch.from_numpy(x[0]).to(device), cs, tapers,
                              ws, lo, hi) for x in cohort)
         chunks.append((e, m, w))
-    (e, m, w), second = chunks
+    return chunks
+
+
+def coeff_work(wc, K, nF, E, M) -> tuple[float, float]:
+    """(flops, bytes) of one B3 chunk: per (window, f, e, m) the
+    denominator and its scale (4), per taper the cross term, its scaling
+    and |y|² into the diagonal (12), per pair k < l the complex product
+    into the sums (8); spectra read once, the 1 + 2·P2 sums written
+    once."""
+    P2 = K * (K - 1) // 2
+    flops = wc * nF * E * M * (4 + 12 * K + 8 * P2)
+    nbytes = 8 * wc * K * nF * (E + M) + 4 * wc + 4 * (1 + 2 * P2) * nF * E * M
+    return float(flops), float(nbytes)
+
+
+def check_coeff_kernel(cohort, device, reps=10) -> dict:
+    """B3 against its plain version at the main path's chunk
+    (:func:`coeff_chunks`, K = 5).  The sums over the chunk's weight sum
+    within COEFF_RTOL / COEFF_ATOL.  Then the accumulate form, as
+    ``rotation_coeffs_subject`` runs it: the next WINDOW_CHUNK windows
+    added by the kernel into the first chunk's sums (``out=``), against
+    the plain version's ``add_``, over both chunks' weight sum."""
+    (e, m, w), second = coeff_chunks(cohort, device)
     got = cuda_coeffs.coeff_pairs(e, m, w)
     ref = cuda_coeffs.coeff_pairs_plain(e, m, w)
     wsum = float(w.sum())
@@ -757,21 +864,13 @@ def check_coeff_kernel(cohort, device, reps=10) -> dict:
     ms_acc = cuda_ms(lambda: cuda_coeffs.coeff_pairs(*second, out=got),
                      reps)
     plain_ms = cuda_ms(lambda: cuda_coeffs.coeff_pairs_plain(e, m, w), reps)
-    # per (window, f, e, m): the denominator and its scale (4), per taper
-    # the cross term, its scaling and |y|² into the diagonal (12), per
-    # pair k < l the complex product into the sums (8); spectra read
-    # once, the 1 + 2·P2 sums written once
     wc, K, nF, E = e.shape
     M = m.shape[-1]
-    P2 = K * (K - 1) // 2
-    flops = wc * nF * E * M * (4 + 12 * K + 8 * P2)
-    nbytes = 8 * wc * K * nF * (E + M) + 4 * wc + 4 * (1 + 2 * P2) * nF * E * M
     out = {"max_abs_err": max(errs.values()) * wsum,
            "accumulate_max_abs_err": max(errs2.values()) * wsum2,
            "ms": ms, "accumulate_ms": ms_acc, "plain_ms": plain_ms,
-           **roofline(ms, float(flops), float(nbytes)),
-           "library_ms": None, "shape": [wc, K, nF, E, M],
-           "ptxas": ptxas_report()}
+           **roofline(ms, *coeff_work(wc, K, nF, E, M)),
+           "library_ms": None, "shape": [wc, K, nF, E, M]}
     log(json.dumps({"check": "coeff_pairs timing", "card": card_name_and_power(),
                     **out}))
     return out
@@ -885,7 +984,10 @@ def run_null(eeg, emg, device, n_surrogates=N_SURROGATES, **extra):
             "null_q95": res["null_quantiles"][0.95],
             "precompute_sec": t["precompute_sec"], "null_sec": t["null_sec"],
             "coeffs_sec": t["coeffs_sec"], "upload_sec": t["upload_sec"],
+            "quantize_sec": t["quantize_sec"],
+            "upload_bytes": t["upload_bytes"],
             "coeff_engine": t["coeff_engine"],
+            "compute_dtype": res["metadata"]["compute_dtype"],
             "contraction_flops": res["metadata"]["contraction_flops"]}, \
         res["observed"]
 
@@ -2732,6 +2834,315 @@ def run_mesh_two_ranks() -> dict:
             "launches": launches_sum, "small_card_vs_cpu_max_abs_err": errs}
 
 
+# ---- the options phase ---------------------------------------------------
+
+def _half_steps(ref: np.ndarray) -> np.ndarray:
+    """Half an int8 step of each lane ``multitaper_msc`` quantizes
+    ``ref`` (W, F, E) in: per (freq, EEG) where the sidecars stay under a
+    tenth of the payload (0.1·W ≥ 8, as at the main path's 119 windows),
+    else per EEG channel; a step is the lane's span over 255."""
+    axes = (0,) if 8.0 <= 0.1 * len(ref) else (0, 1)
+    return 0.5 * (ref.max(axis=axes) - ref.min(axis=axes)) / 255.0
+
+
+def run_cmc_transfers(eeg, emg, device) -> dict:
+    """The CMC leg at bench.py:146-149's settings (int8 download, int16
+    upload) beside the float32 leg and an int16-upload leg with a
+    float32 download, on the same signals: the bytes each way; the
+    download's quantization alone, the int8 leg within half a step
+    (+ 1e-6 of float32 rounding) of the int16-upload leg's own values in
+    every cell of the coherence and both CIs; the upload's, the int16-
+    upload leg's coherence within OPT_CMC_SLACK of the float32 leg's in
+    every cell; both, the int8 leg within half a step of the float32
+    leg's per-lane spans plus OPT_CMC_SLACK, the coherence in every cell
+    and the CIs in all but OPT_CI_MOVED of them; the peak in the planted
+    band; upload, compute and download seconds."""
+    kw = dict(nw=NW, window_length_sec=WINDOW_SEC, overlap_frac=OVERLAP,
+              use_jackknife=True, aggregate_emg_max=True,
+              apply_independence_threshold=False, collect_timings=True)
+    f32 = TC.multitaper_msc(eeg, emg, FS, device=device, **kw)
+    up16 = TC.multitaper_msc(eeg, emg, FS, device=device,
+                             input_transfer="int16", **kw)
+    t0 = time.perf_counter()
+    q = TC.multitaper_msc(eeg, emg, FS, device=device, transfer_dtype=np.int8,
+                          input_transfer="int16", **kw)
+    wall = time.perf_counter() - t0
+    tf, tq = f32["timings"], q["timings"]
+    _require(tq["download_bytes"] <= OPT_DOWNLOAD_SHARE
+             * tf["download_bytes"], f"int8 CMC downloads "
+             f"{tq['download_bytes']} of the float32 leg's "
+             f"{tf['download_bytes']} bytes")
+    _require(2 * tq["upload_bytes"] == tf["upload_bytes"],
+             f"int16 CMC uploads {tq['upload_bytes']} of the float32 leg's "
+             f"{tf['upload_bytes']} bytes")
+    errs, excess, moved, dl_excess, upload_err = {}, {}, {}, {}, {}
+    for key in ("coherence_raw", "coherence_ci_lower", "coherence_ci_upper"):
+        ref, got = f32[key], q[key]
+        _require(got.shape == ref.shape and bool(np.isfinite(got).all()),
+                 f"int8 CMC {key}: {got.shape}, non-finite values")
+        dl_excess[key] = float((np.abs(got - up16[key])
+                                / (_half_steps(up16[key]) + 1e-6)).max())
+        upload_err[key] = float(np.abs(up16[key] - ref).max())
+        d = np.abs(got - ref)
+        over = d > _half_steps(ref) + OPT_CMC_SLACK
+        errs[key] = float(d.max())
+        moved[key] = float(over.mean())
+        excess[key] = float((d / (_half_steps(ref) + OPT_CMC_SLACK)).max())
+    log(json.dumps({"check": "cmc int8 download, int16 upload",
+                    "download_over_half_step_of_own_values": dl_excess,
+                    "int16_upload_max_abs_err": upload_err,
+                    "max_abs_err": errs, "max_err_over_bound": excess,
+                    "cells_over_bound": moved}))
+    _require(max(dl_excess.values()) <= 1.0,
+             f"int8 CMC: the download off its own float32 values by more "
+             f"than half a step: {dl_excess}")
+    _require(upload_err["coherence_raw"] <= OPT_CMC_SLACK,
+             f"int16-upload CMC off the float32 leg's coherence by "
+             f"{upload_err['coherence_raw']}")
+    _require(excess["coherence_raw"] <= 1.0,
+             f"int8 CMC coherence off the float32 leg by more than half a "
+             f"step: {excess}")
+    _require(max(moved.values()) <= OPT_CI_MOVED,
+             f"int8 CMC CIs off the float32 leg in {moved} of the cells")
+    spectrum = q["coherence_raw"].mean(axis=(0, 2))
+    f_peak = float(q["freqs"][int(np.argmax(spectrum[1:])) + 1])
+    _require(15.0 <= f_peak <= 30.0, f"int8 CMC peaks at {f_peak} Hz")
+    return {"wall_sec": wall, "peak_hz": f_peak, "timings_int8": tq,
+            "timings_float32": tf,
+            "download_share": tq["download_bytes"] / tf["download_bytes"],
+            "upload_share": tq["upload_bytes"] / tf["upload_bytes"],
+            "max_abs_err": errs, "max_err_over_half_step": excess,
+            "cells_over_half_step": moved}
+
+
+def check_null_kernel_bf16(device, reps=10) -> dict:
+    """B2's bf16 instance against its plain version (``bmm`` of the
+    rounded operands, widened to float32) on one 500-surrogate chunk at
+    the main path's shapes: maxima within rtol NULL_TOL, counts equal
+    but in cells whose statistic lies within NULL_TOL of the observed
+    one.  Its bound: the bf16 tensor cores' rate against the bytes at
+    3.35 TB/s; library_ms is ``torch.bmm`` of the bf16 operands (the
+    product alone, bf16 out)."""
+    dtype = torch.bfloat16
+    state, key, K = null_check_state(device, dtype=dtype, seed=1)
+    J, S = state.n_subjects, SURROGATE_CHUNK
+    nF, JP, N = state.coefT.shape
+    key, sub = prng.split(key)
+    G = cuda_null.null_features(TN.phase_features(
+        TN.draw_phases(sub, J, S, K, nF, device)), dtype)
+    args = (G, state.coefT, state.base_flat, state.observed_flat, J, S)
+    ms, cnt = cuda_null.null_tile(*args)
+    ms_p, cnt_p = cuda_null.null_tile_plain(*args)
+    _require(bool(torch.isfinite(ms).all()), "B2 bf16: non-finite max_stat")
+    err = float((ms - ms_p).abs().max())
+    _require(bool(((ms - ms_p).abs() <= NULL_TOL * ms_p.abs()).all()),
+             f"B2 bf16 max_stat disagrees: {err}")
+    rows = G[..., :S].transpose(1, 2).float()
+    stat = state.base_flat[:, None] + torch.bmm(rows, state.coefT.float()) / J
+    ties = ((stat - state.observed_flat[:, None]).abs() <= NULL_TOL).any(1)
+    del stat, rows
+    differ = cnt != cnt_p
+    n_off = int((differ & ~ties).sum())
+    log(json.dumps({"check": "null_tile bf16", "shape": [nF, S, JP, N],
+                    "max_stat_abs_err": err,
+                    "count_cells_differ": float(differ.float().mean()),
+                    "count_cells_differ_off_ties": n_off,
+                    "tie_cells": float(ties.float().mean())}))
+    _require(n_off == 0, f"B2 bf16 counts differ in {n_off} cells whose "
+             "statistic is not within 1e-5 of the observed one")
+    out = {"max_abs_err": err,
+           "ms": cuda_ms(lambda: cuda_null.null_tile(*args), reps),
+           "plain_ms": cuda_ms(lambda: cuda_null.null_tile_plain(*args),
+                               reps)}
+    nbytes = 2 * (G.numel() + state.coefT.numel()) + 4 * (3 * nF * N + S)
+    out.update(roofline(out["ms"], 2.0 * nF * S * JP * N, nbytes,
+                        PEAK_BF16_FLOPS))
+    a = G[..., :S].transpose(1, 2).contiguous()
+    out["library_ms"] = cuda_ms(lambda: torch.bmm(a, state.coefT), reps)
+    out["shape"] = [nF, S, JP, N]
+    out["peak"] = "bf16 tensor cores, 989 TFLOP/s dense"
+    del a
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_msc_many_tapers(eeg, emg, device, nw, reps=5) -> dict:
+    """B1 at ``nw``'s taper count: the full grid of the main path's first
+    B1_CMP_WINDOWS windows against the plain version (coherence within
+    MSC_ATOL, CIs within ``ci_tolerance``), the EMG-max mode bit for bit
+    the full grid at its pick; then its time at the main path's chunk
+    (``multitaper_msc``'s chunk for this K) and the bound."""
+    e, m, t_crit = main_path_msc_chunk(eeg, emg, device, nw)
+    ec, mc = (x[:B1_CMP_WINDOWS].contiguous() for x in (e, m))
+    kf = _np(cuda_msc.msc_jackknife(ec, mc, t_crit, emg_max=False))
+    km = _np(cuda_msc.msc_jackknife(ec, mc, t_crit, emg_max=True))
+    pf = _np(cuda_msc.msc_jackknife_plain(ec, mc, t_crit, emg_max=False))
+    tol = cuda_msc.ci_tolerance(
+        cuda_msc.loo_coherence_max(ec, mc).cpu().numpy(), MSC_ATOL)
+    errs, excess = {}, {}
+    for key in ("coherence", "ci_lower", "ci_upper"):
+        _require(bool(np.isfinite(kf[key]).all()),
+                 f"B1 nw={nw} {key}: non-finite values")
+        d = np.abs(kf[key] - pf[key])
+        bound = MSC_ATOL if key == "coherence" else tol
+        errs[key] = float(d.max())
+        excess[key] = float((d / bound).max())
+    _require(max(excess.values()) <= 1.0,
+             f"B1 nw={nw} disagrees with its plain version: {excess}")
+    first = np.argmax(kf["coherence"], axis=-1)[..., None]
+    for key in ("coherence", "ci_lower", "ci_upper"):
+        _require(np.array_equal(
+            km[key], np.take_along_axis(kf[key], first, -1)[..., 0]),
+            f"B1 nw={nw} EMG-max {key} is not the full grid's at its pick")
+    del kf, km, pf, tol
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: cuda_msc.msc_jackknife(e, m, t_crit), reps)
+    W, K, F, E = e.shape
+    M = m.shape[-1]
+    return {"K": K, "max_abs_err": max(errs.values()),
+            "max_err_over_tolerance": excess,
+            "compared_windows": B1_CMP_WINDOWS, "ms": ms,
+            **roofline(ms, *msc_emg_max_work(W, K, F, E, M)),
+            "shape": [W, K, F, E, M]}
+
+
+def check_coeff_many_tapers(cohort, device, nw, reps=5) -> dict:
+    """B3 at ``nw``'s taper count on the main path's first chunk against
+    its plain version (COEFF_RTOL / COEFF_ATOL over the weight sum), its
+    time there and the bound."""
+    (e, m, w), _ = coeff_chunks(cohort, device, nw)
+    got = cuda_coeffs.coeff_pairs(e, m, w)
+    ref = cuda_coeffs.coeff_pairs_plain(e, m, w)
+    wsum = float(w.sum())
+    errs, excess = _coeff_excess(got, ref, wsum, f"B3 nw={nw}")
+    _require(max(excess.values()) <= 1.0,
+             f"B3 nw={nw} disagrees with its plain version: {excess}")
+    del got, ref
+    ms = cuda_ms(lambda: cuda_coeffs.coeff_pairs(e, m, w), reps)
+    wc, K, nF, E = e.shape
+    M = m.shape[-1]
+    out = {"K": K, "max_abs_err": max(errs.values()) * wsum,
+           "max_err_over_tolerance": excess, "ms": ms,
+           **roofline(ms, *coeff_work(wc, K, nF, E, M)),
+           "shape": [wc, K, nF, E, M]}
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_ica_reference(device) -> dict:
+    """``batch_layout='reference'`` small, card against CPU: the epochs'
+    permutations (threefry kernel and a stable sort on the card) equal
+    the CPU's bit for bit, and ICA_REF_EPOCHS epochs on the same
+    whitened data give the CPU's W within rtol 1e-4
+    (tests/test_torch_ica.py)."""
+    rng = np.random.default_rng(12)
+    xw = rng.laplace(size=ICA_REF_SHAPE).astype(np.float32)
+    n = (ICA_REF_SHAPE[0] // ICA_REF_BLOCK) * ICA_REF_BLOCK
+    key = prng.prng_key(42)
+    perms_equal = True
+    for _ in range(ICA_REF_EPOCHS):
+        key, sub = prng.split(key)
+        card = cuda_prng.permutation(sub, n, device)
+        _require(card.device.type == "cuda", "permutation left the card")
+        perms_equal &= bool(torch.equal(card.cpu(),
+                                        prng.permutation(sub, n)))
+    _require(perms_equal, "reference-layout permutations differ card vs CPU")
+    t0 = time.perf_counter()
+    w_card, n_card = TI._extended_infomax(
+        prng.prng_key(42), torch.from_numpy(xw).to(device),
+        ICA_REF_SHAPE[1], ICA_REF_BLOCK, ICA_REF_EPOCHS, np.float32(0.003),
+        batch_layout="reference")
+    torch.cuda.synchronize()
+    card_sec = time.perf_counter() - t0
+    w_cpu, n_cpu = TI._extended_infomax(
+        prng.prng_key(42), torch.from_numpy(xw), ICA_REF_SHAPE[1],
+        ICA_REF_BLOCK, ICA_REF_EPOCHS, np.float32(0.003),
+        batch_layout="reference")
+    d = (w_card.cpu() - w_cpu).abs()
+    bound = 1e-4 * w_cpu.abs() + 1e-6 * float(w_cpu.abs().max())
+    _require(n_card == n_cpu == ICA_REF_EPOCHS and bool((d <= bound).all()),
+             f"reference-layout W card vs CPU: {float(d.max())}")
+    return {"samples": n, "block": ICA_REF_BLOCK, "epochs": n_card,
+            "permutations_bitwise_equal": perms_equal,
+            "w_max_abs_err": float(d.max()), "card_sec": card_sec}
+
+
+def check_device_trace(eeg, emg, device) -> dict:
+    """``utils.profiling`` on the card: one B1 launch on the main path's
+    first chunk under ``device_trace`` and ``annotate``; the trace file
+    must hold the annotation and B1's kernel as a device event."""
+    e, m, t_crit = main_path_msc_chunk(eeg, emg, device)
+    with tempfile.TemporaryDirectory() as d:
+        with device_trace(d):
+            with annotate("b1 chunk"):
+                cuda_msc.msc_jackknife(e, m, t_crit)
+        files = list(Path(d).glob("*.json"))
+        _require(len(files) == 1, f"device_trace wrote {len(files)} files")
+        events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = [ev for ev in events if ev.get("cat") == "kernel"
+               and "msc_jackknife_kernel" in ev.get("name", "")]
+    _require(len(kernels) == 1 and any(ev.get("name") == "b1 chunk"
+                                       for ev in events),
+             "device_trace lacks B1's kernel or the annotation")
+    return {"events": len(events), "b1_kernel_us": kernels[0].get("dur")}
+
+
+def run_options(eeg, emg, cohort, observed_gram, device, card) -> dict:
+    """The options phase: bench.py's own transfer settings, the null in
+    bf16, B1 and B3 at more tapers and the reference-layout ICA, each
+    section timed by ``utils.profiling.StageTimer``; every path's launch
+    counts set to 0 just before it and read just after."""
+    timer = StageTimer("options")
+    out = {"card": card}
+    reset_launches()
+    with timer.stage("cmc_int8_int16"):
+        out["cmc"] = run_cmc_transfers(eeg, emg, device)
+    out["cmc"]["launches"] = launches()
+    _require(out["cmc"]["launches"]["msc_jackknife"] > 0,
+             "the int8 CMC leg did not launch B1")
+    reset_launches()
+    with timer.stage("null_int16_upload"):
+        out["null_int16"], observed = run_null(
+            *cohort, device, transfer_dtype=np.int16)
+    out["null_int16"]["launches"] = launches()
+    d = float(np.abs(observed - observed_gram).max())
+    out["null_int16"]["observed_max_abs_err"] = d
+    log(json.dumps({"check": "null int16 upload: observed map",
+                    "max_abs_err": d, "atol": OPT_NULL_OBS_ATOL}))
+    _require(d <= OPT_NULL_OBS_ATOL, f"int16-upload null: observed map off "
+             f"the float32 leg's by {d}")
+    _require(out["null_int16"]["launches"]["null_tile"] > 0,
+             "the int16-upload null did not launch B2")
+    reset_launches()
+    with timer.stage("null_bf16"):
+        out["null_bf16"], _ = run_null(*cohort, device,
+                                       compute_dtype=torch.bfloat16)
+    out["null_bf16"]["launches"] = launches()
+    _require(out["null_bf16"]["launches"]["null_tile"] > 0
+             and out["null_bf16"]["launches"]["threefry"] > 0,
+             "the bf16 null did not launch B2 and threefry")
+    torch.cuda.empty_cache()
+    with timer.stage("b2_bf16_check"):
+        out["b2_bf16"] = check_null_kernel_bf16(device)
+    with timer.stage("b1_b3_many_tapers"):
+        out["b1"] = {f"nw={nw}": check_msc_many_tapers(eeg, emg, device, nw)
+                     for nw in OPT_NWS}
+        out["b3"] = {f"nw={nw}": check_coeff_many_tapers(cohort, device, nw)
+                     for nw in OPT_NWS}
+    reset_launches()
+    with timer.stage("ica_reference"):
+        out["ica_reference"] = check_ica_reference(device)
+    out["ica_reference"]["launches"] = launches()
+    _require(out["ica_reference"]["launches"]["threefry"] > 0,
+             "the reference-layout ICA did not draw with threefry")
+    with timer.stage("device_trace"):
+        out["device_trace"] = check_device_trace(eeg, emg, device)
+    out["stages"] = dict(timer.stages)
+    out["sec"] = timer.total
+    timer.report(printer=log)
+    return out
+
+
 def reset_launches() -> None:
     cuda_msc.msc_jackknife.launches = 0
     cuda_null.null_tile.launches = 0
@@ -2771,6 +3182,7 @@ def main() -> int:
     log(json.dumps({"phase": "build", "sec": time.perf_counter() - t0,
                     "library": lib_path.name,
                     "sources": [p.name for p in _build.sources()]}))
+    ptxas = ptxas_start()             # registers and spills, meanwhile
 
     threefry = check_prng_kernel(device)
     eeg, emg = make_signals(0, N_EEG, N_EMG, SECONDS)
@@ -2801,7 +3213,6 @@ def main() -> int:
              "the CMC main path did not launch the B1 kernel")
     log(json.dumps({"phase": "cmc_main_path", "card": card, **cmc,
                     "launches": n_cmc}))
-    del eeg, emg
     reset_launches()
     gram, observed_gram = run_null(*cohort, device)
     gram["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -2836,6 +3247,10 @@ def main() -> int:
                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
     _require_close_observed(xla["observed"], observed_gram,
                             "null observed map: 'xla' vs 'gram' engine")
+    torch.cuda.empty_cache()
+    options = run_options(eeg, emg, cohort, observed_gram, device, card)
+    log(json.dumps({"phase": "options", **options}))
+    del eeg, emg
     torch.cuda.empty_cache()
 
     pw_cohort = tuple(np.ascontiguousarray(x[..., :PW_CHANNELS])
@@ -2955,12 +3370,16 @@ def main() -> int:
                     "sec": time.perf_counter() - t0, "world_1_nccl": mesh1,
                     "two_gloo_ranks_one_card": mesh2}))
 
+    report = ptxas_report(ptxas)
     paths = {"cmc": n_cmc, "null_gram": n_gram, "null_pallas": n_pallas,
              "null_per_window": n_pw, "fft_null": n_fft,
              "feature_extraction": n_feat, "preprocessing": n_pre,
              "phase_null": n_phase, "statistics": n_stat,
              "pipeline": n_pipe, "music": n_music,
-             "mesh": mesh1["launches"], "mesh_2_ranks": mesh2["launches"]}
+             "mesh": mesh1["launches"], "mesh_2_ranks": mesh2["launches"],
+             "options_cmc": options["cmc"]["launches"],
+             "options_null_int16": options["null_int16"]["launches"],
+             "options_ica_reference": options["ica_reference"]["launches"]}
     by_path = lambda k: {p: n[k] for p, n in paths.items()}
     kernels = [
         {"name": "msc_jackknife", "route": "cuda",
@@ -2968,17 +3387,26 @@ def main() -> int:
          "replaces": "mba_tpu/ops/pallas_msc.py:40",
          "launches": n_cmc["msc_jackknife"],
          "launches_by_path": by_path("msc_jackknife"), **msc,
-         "task_cmc_11x64": narrow},
+         "task_cmc_11x64": narrow, "many_tapers": options["b1"],
+         "ptxas": report["msc_jackknife"]},
         {"name": "null_tile", "route": "cuda",
          "source": "mba_tpu_torch/csrc/null_tile.cu",
          "replaces": "mba_tpu/ops/pallas_null.py:37",
          "launches": n_gram["null_tile"],
          "launches_by_path": by_path("null_tile"), **null},
+        {"name": "null_tile_bf16", "route": "cuda",
+         "source": "mba_tpu_torch/csrc/null_tile.cu",
+         "replaces": "mba_tpu/ops/pallas_null.py:37",
+         "note": "B2's bf16 instance (compute_dtype=torch.bfloat16): "
+                 "16-bit operands widened to float32 on the CUDA cores",
+         "launches": options["null_bf16"]["launches"]["null_tile"],
+         **options["b2_bf16"]},
         {"name": "coeff_pairs", "route": "cuda",
          "source": "mba_tpu_torch/csrc/coeff_pairs.cu",
          "replaces": "mba_tpu/ops/pallas_coeffs.py:83",
          "launches": n_pallas["coeff_pairs"],
-         "launches_by_path": by_path("coeff_pairs"), **coeff},
+         "launches_by_path": by_path("coeff_pairs"), **coeff,
+         "many_tapers": options["b3"], "ptxas": report["coeff_pairs"]},
         {"name": "threefry", "route": "cuda",
          "source": "mba_tpu_torch/csrc/threefry.cu", "replaces": None,
          "note": "port-only: jax.random's threefry2x32 bits for the nulls' "

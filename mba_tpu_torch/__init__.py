@@ -48,7 +48,12 @@ The slices so far:
   ``mesh=``: every rank computes its block and gets the whole result;
 - the acquisition hardware layer (``acquisition``, ``native``'s serial
   shim, ``pipeline.sensor_calibration``), host code that never touches
-  the card.
+  the card;
+- the JAX package's remaining options: the quantized transfers
+  (``utils.transfer``, ``native``'s host quantizers) of
+  ``multitaper_msc`` and the rotation null, the null's 16-bit
+  ``compute_dtype``, any taper count on the card, ICA's reference
+  layout; ``utils.profiling``; the sub-packages' re-exports.
 
 The package imports torch, numpy and scipy (pandas only where a frame or
 an experiment log is read, matplotlib only where a figure is drawn,
@@ -67,3 +72,5 @@ __version__ = "0.1.0"
 from mba_tpu_torch._device import apply_precision_policy
 
 apply_precision_policy()
+
+from mba_tpu_torch import channel_layout  # noqa: F401,E402

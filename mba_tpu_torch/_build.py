@@ -42,8 +42,9 @@ _SIGNATURES = {
     "mba_msc_jackknife": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                           _P),
     # G, coefT, base, obs, partial_max, counts, max_out,
-    # nF, S, JP, N, inv_J, stream
-    "mba_null_tile": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # nF, S, ldg, JP, N, inv_J, kind, stream
+    "mba_null_tile": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                      _I, _P),
     # eeg, emg, weights, diag, pr, pi, wc, K, F, E, M, accumulate, stream
     "mba_coeff_pairs": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _P),

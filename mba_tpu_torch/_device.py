@@ -45,11 +45,18 @@ def entry_device(device, *tensors) -> torch.device:
     return dev
 
 
-def not_ported(option: str, item: str) -> NotImplementedError:
-    """The error an entry point raises, before any upload, for an option
-    the port does not have yet; ``item`` names its ROADMAP entry."""
-    return NotImplementedError(
-        f"{option} is not ported to mba_tpu_torch yet (ROADMAP {item})")
+def dtype_name(dtype) -> str:
+    """The name of a numpy, torch or JAX type (``np.int16``,
+    ``torch.bfloat16``, ``jnp.bfloat16``) or of a string naming one:
+    how an option naming a transfer or compute type is read."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).removeprefix("torch.")
+    if isinstance(dtype, str):
+        return dtype
+    try:
+        return np.dtype(dtype).name
+    except TypeError:           # bfloat16 without ml_dtypes
+        return getattr(dtype, "__name__", str(dtype))
 
 
 def synchronize(device: torch.device) -> None:

@@ -51,6 +51,16 @@
 //   channel powers pe/pm and stages its weights in shared memory; two
 //   barriers a group, not two a window.
 //
+// Taper counts: compile-time instances for 2 <= K <= 16 (nw <= 8.5).  Above
+// K = 8 a thread owns one cell, with 4 warps a block and the register cap
+// lifted to 255 (one block an SM guaranteed): its 1 + K(K−1) sums still
+// grow past the register file from K ≈ 12 on, and ptxas spills the rest
+// (chip_smoke.ptxas_report prints registers and spills per instance).
+// Above K = 16 one runtime-K instance takes any K: a thread a cell, the
+// pairs in blocks of PAIR_BLOCK sums held in registers, each block a pass
+// over the chunk's windows with the spectra re-read from device memory
+// (L1/L2) and the powers formed again; the diagonal is the first pass.
+//
 // Numerics as the plain version's: no fast math.  The clamp is
 // NaN-propagating, as jnp.maximum: a NaN spectrum gives NaN sums even in a
 // zero-weight window, which is evaluated like any other.  IEEE division
@@ -83,7 +93,7 @@ struct Tile {
   static constexpr int TE = K <= 6 ? 2 : 1;
   static constexpr int TM = K <= 4 ? 2 : 1;
   static constexpr int WARPS = K <= 5 ? 8 : 4;
-  static constexpr int MIN_BLOCKS = K <= 5 ? 2 : 3;
+  static constexpr int MIN_BLOCKS = K <= 5 ? 2 : (K <= 8 ? 3 : 1);
 };
 
 struct Geom {
@@ -415,13 +425,117 @@ cudaError_t launch(const void* eeg, const void* emg, const void* weights,
   return cudaGetLastError();
 }
 
+// ---- any K: the runtime-K instance -------------------------------------
+
+constexpr int RT_THREADS = 128;
+constexpr int PAIR_BLOCK = 8;
+
+__global__ void __launch_bounds__(RT_THREADS)
+coeff_pairs_rt_kernel(const float2* __restrict__ eeg,
+                      const float2* __restrict__ emg,
+                      const float* __restrict__ weights,
+                      float* __restrict__ diag, float* __restrict__ pr,
+                      float* __restrict__ pi, int wc, int K, int F, int E,
+                      int M, int accumulate) {
+  const size_t N = (size_t)E * M, FN = (size_t)F * N;
+  const size_t cell = (size_t)blockIdx.x * RT_THREADS + threadIdx.x;
+  if (cell >= FN) return;
+  const int f = (int)(cell / N);
+  const int e = (int)((cell - (size_t)f * N) / M);
+  const int m = (int)(cell - (size_t)f * N - (size_t)e * M);
+  const int P2 = K * (K - 1) / 2;
+  // taper k of window i: row i·K + k of the (wc·K, F, C) views
+  auto E_at = [&](int i, int k) {
+    return __ldg(eeg + (((size_t)i * K + k) * F + f) * E + e);
+  };
+  auto M_at = [&](int i, int k) {
+    return __ldg(emg + (((size_t)i * K + k) * F + f) * M + m);
+  };
+  // window i's scale sqrt(w / max(pe·pm, FLT_MIN)), as the kernel above
+  auto scale = [&](int i) {
+    float pe = 0.f, pm = 0.f;
+    for (int k = 0; k < K; ++k) {
+      const float2 x = E_at(i, k), y = M_at(i, k);
+      pe += x.x * x.x + x.y * x.y;
+      pm += y.x * y.x + y.y * y.y;
+    }
+    const float w = weights[i];
+    const float den = nan_max(pe * pm, FLT_MIN);
+    return w == 0.f ? (den != den ? den : w) : sqrtf(w / den);
+  };
+  auto product = [&](int i, int k, float sc, float& yr, float& yi) {
+    const float2 x = E_at(i, k), y = M_at(i, k);
+    yr = (x.x * y.x + x.y * y.y) * sc;
+    yi = (x.x * y.y - x.y * y.x) * sc;
+  };
+
+  float d = 0.f;
+  for (int i = 0; i < wc; ++i) {
+    const float sc = scale(i);
+    for (int k = 0; k < K; ++k) {
+      float yr, yi;
+      product(i, k, sc, yr, yi);
+      d = fmaf(yi, yi, fmaf(yr, yr, d));
+    }
+  }
+  diag[cell] = accumulate ? __fadd_rn(diag[cell], d) : d;
+
+  // pairs k < l in triu order, PAIR_BLOCK of them a pass
+  int k0 = 0, l0 = 1;
+  for (int p0 = 0; p0 < P2; p0 += PAIR_BLOCK) {
+    int kk[PAIR_BLOCK], ll[PAIR_BLOCK];
+    float ar[PAIR_BLOCK], ai[PAIR_BLOCK];
+#pragma unroll
+    for (int j = 0; j < PAIR_BLOCK; ++j) {
+      kk[j] = k0;
+      ll[j] = l0;
+      ar[j] = ai[j] = 0.f;
+      if (++l0 == K) l0 = ++k0 + 1;
+    }
+    const int np = P2 - p0 < PAIR_BLOCK ? P2 - p0 : PAIR_BLOCK;
+    for (int i = 0; i < wc; ++i) {
+      const float sc = scale(i);
+#pragma unroll
+      for (int j = 0; j < PAIR_BLOCK; ++j)
+        if (j < np) {
+          float yrk, yik, yrl, yil;
+          product(i, kk[j], sc, yrk, yik);
+          product(i, ll[j], sc, yrl, yil);
+          ar[j] = fmaf(yik, yil, fmaf(yrk, yrl, ar[j]));
+          ai[j] = fmaf(-yrk, yil, fmaf(yik, yrl, ai[j]));
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < PAIR_BLOCK; ++j)
+      if (j < np) {
+        const size_t o = (size_t)(p0 + j) * FN + cell;
+        pr[o] = accumulate ? __fadd_rn(pr[o], ar[j]) : ar[j];
+        pi[o] = accumulate ? __fadd_rn(pi[o], ai[j]) : ai[j];
+      }
+  }
+}
+
+cudaError_t launch_rt(const void* eeg, const void* emg, const void* weights,
+                      void* diag, void* pr, void* pi, int wc, int K, int F,
+                      int E, int M, int accumulate, cudaStream_t stream) {
+  const long long cells = (long long)F * E * M;
+  const long long blocks = (cells + RT_THREADS - 1) / RT_THREADS;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  coeff_pairs_rt_kernel<<<(int)blocks, RT_THREADS, 0, stream>>>(
+      static_cast<const float2*>(eeg), static_cast<const float2*>(emg),
+      static_cast<const float*>(weights), static_cast<float*>(diag),
+      static_cast<float*>(pr), static_cast<float*>(pi), wc, K, F, E, M,
+      accumulate);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int mba_coeff_pairs(const void* eeg, const void* emg,
                                const void* weights, void* diag, void* pr,
                                void* pi, int wc, int K, int F, int E, int M,
                                int accumulate, void* stream) {
-  if (wc < 0 || F <= 0 || E <= 0 || M <= 0)
+  if (wc < 0 || F <= 0 || E <= 0 || M <= 0 || K < 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MBA_CASE(k)                                                       \
@@ -430,8 +544,11 @@ extern "C" int mba_coeff_pairs(const void* eeg, const void* emg,
                      accumulate, s);
   switch (K) {
     MBA_CASE(2) MBA_CASE(3) MBA_CASE(4) MBA_CASE(5) MBA_CASE(6) MBA_CASE(7)
-    MBA_CASE(8)
-    default: return (int)cudaErrorInvalidValue;
+    MBA_CASE(8) MBA_CASE(9) MBA_CASE(10) MBA_CASE(11) MBA_CASE(12)
+    MBA_CASE(13) MBA_CASE(14) MBA_CASE(15) MBA_CASE(16)
+    default:
+      return (int)launch_rt(eeg, emg, weights, diag, pr, pi, wc, K, F, E, M,
+                            accumulate, s);
   }
 #undef MBA_CASE
 }

@@ -56,6 +56,14 @@
 //   stores are consecutive (the first form stored a row of M per thread,
 //   ~10× slower per 64×64 chunk).
 //
+// Taper counts: compile-time instances for 2 <= K <= 16 (nw <= 8.5), whose
+// per-taper values live in registers; above K = 16 one runtime-K instance
+// forms each per-taper value again where it is used (the EEG spectra
+// re-read through L1, the EMG spectra and powers from shared memory), by
+// the same operations in the same order, so that no array per taper is
+// held and the card takes any K whose EMG spectra fit a block's shared
+// memory (K·M·12 bytes a frequency).  It runs one lane a cell.
+//
 // Numerics: no fast math.  In float32 1 - 1e-10 == 1, so the Fisher clip
 // lets c == 1 through to log(2/0) = +inf and the z variance to
 // inf - inf = NaN, as in the JAX package; jnp.maximum/minimum/clip
@@ -414,30 +422,238 @@ msc_jackknife_kernel(const float2* __restrict__ eeg,
   }
 }
 
+// ---- any K: the runtime-K instance -------------------------------------
+
+// One (w, f, e) cell's EEG spectra, re-read where used: taper k at
+// x[k · xs]; sum_e their total power as load_eeg forms it
+struct CellRT {
+  const float2* x;
+  size_t xs;
+  int K;
+  float sum_e;
+
+  __device__ __forceinline__ CellRT(const float2* eeg, size_t wk, int F,
+                                    int E, int f, int e, int K_)
+      : x(eeg + (wk * F + f) * E + e), xs((size_t)F * E), K(K_) {
+    sum_e = 0.f;
+    for (int k = 0; k < K; ++k) sum_e = add(sum_e, power(x[k * xs]));
+  }
+  __device__ __forceinline__ float2 spec(int k) const {
+    return __ldg(x + k * xs);
+  }
+};
+
+// Cross<K>'s terms for taper k, and its totals
+__device__ __forceinline__ void cross_term(const CellRT& c, const float2* v,
+                                           int k, float& cr, float& ci) {
+  const float2 e = c.spec(k), mk = v[k];
+  cr = add(mul(e.x, mk.x), mul(e.y, mk.y));
+  ci = sub(mul(e.x, mk.y), mul(e.y, mk.x));
+}
+
+__device__ __forceinline__ void cross_sums(const CellRT& c, const float2* v,
+                                           float& sum_cr, float& sum_ci) {
+  cross_term(c, v, 0, sum_cr, sum_ci);
+  for (int k = 1; k < c.K; ++k) {
+    float cr, ci;
+    cross_term(c, v, k, cr, ci);
+    sum_cr = add(sum_cr, cr);
+    sum_ci = add(sum_ci, ci);
+  }
+}
+
+// Cross<K>::loo with taper k's terms and powers formed again
+__device__ __forceinline__ float loo_rt(const CellRT& c, const float2* v,
+                                        const float* loo_m, float sum_cr,
+                                        float sum_ci, int k) {
+  float cr, ci;
+  cross_term(c, v, k, cr, ci);
+  return loo_ratio(sum_cr, sum_ci, cr, ci, sub(c.sum_e, power(c.spec(k))),
+                   loo_m[k]);
+}
+
+__device__ __forceinline__ float coherence_mean_rt(const CellRT& c,
+                                                   const float2* v,
+                                                   const float* loo_m) {
+  float sum_cr, sum_ci;
+  cross_sums(c, v, sum_cr, sum_ci);
+  float sum_c = loo_rt(c, v, loo_m, sum_cr, sum_ci, 0);
+  for (int k = 1; k < c.K; ++k)
+    sum_c = add(sum_c, loo_rt(c, v, loo_m, sum_cr, sum_ci, k));
+  return clip(mul(sum_c, 1.0f / c.K), 0.f, 1.f);
+}
+
+// jackknife() in two passes over the tapers: the sums, then the
+// variance about the z mean, each c_k and z_k formed again
+__device__ __forceinline__ void jackknife_rt(const CellRT& c,
+                                             const float2* v,
+                                             const float* loo_m,
+                                             float t_crit, float& cm,
+                                             float& cl, float& cu) {
+  const int K = c.K;
+  float sum_cr, sum_ci;
+  cross_sums(c, v, sum_cr, sum_ci);
+  float sum_c = loo_rt(c, v, loo_m, sum_cr, sum_ci, 0);
+  float sum_z = fisher(sum_c);
+  for (int k = 1; k < K; ++k) {
+    const float ck = loo_rt(c, v, loo_m, sum_cr, sum_ci, k);
+    sum_c = add(sum_c, ck);
+    sum_z = add(sum_z, fisher(ck));
+  }
+  cm = clip(mul(sum_c, 1.0f / K), 0.f, 1.f);
+  const float z_mean = mul(sum_z, 1.0f / K);
+  float ss = 0.f;
+  for (int k = 0; k < K; ++k) {
+    const float d =
+        sub(fisher(loo_rt(c, v, loo_m, sum_cr, sum_ci, k)), z_mean);
+    ss = __fmaf_rn(d, d, ss);
+  }
+  const float z_se = __fsqrt_rn(mul((K - 1.0f) / K, ss));
+  const float zc = fisher(cm);
+  const float tl = tanhf(__fmaf_rn(-t_crit, z_se, zc));
+  const float th = tanhf(__fmaf_rn(t_crit, z_se, zc));
+  cl = nan_min(mul(tl, tl), cm);
+  cu = nan_max(mul(th, th), cm);
+}
+
+template <bool EMG_MAX>
+__global__ void __launch_bounds__(THREADS)
+msc_jackknife_rt_kernel(const float2* __restrict__ eeg,
+                        const float2* __restrict__ emg,
+                        float* __restrict__ coh, float* __restrict__ lo,
+                        float* __restrict__ hi, int K, int F, int E, int M,
+                        int FB, float t_crit) {
+  extern __shared__ float4 smem[];
+  const int RS = M * K + 1;             // as msc_jackknife_kernel's rows
+  float2* ms = reinterpret_cast<float2*>(smem);
+  float* loo_m = reinterpret_cast<float*>(ms + FB * RS);
+
+  const int w = blockIdx.y;
+  const int f0 = blockIdx.x * FB;
+  const size_t wk = (size_t)w * K;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int fb = F - f0 < FB ? F - f0 : FB;
+  const int cells = fb * E;
+
+  const size_t taper = (size_t)F * M;
+  const int m_rows = (M + 31) / 32;
+  for (int r = warp; r < fb * m_rows; r += n_warps) {
+    const int fi = r / m_rows, m = (r - fi * m_rows) * 32 + lane;
+    if (m >= M) continue;
+    const float2* src = emg + (wk * F + f0 + fi) * M + m;
+    float2* dst = ms + fi * RS + m * K;
+    for (int k = 0; k < K; ++k) cp_async8(dst + k, src + k * taper);
+  }
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+  for (int fi = warp; fi < fb; fi += n_warps)
+    for (int m = lane; m < M; m += 32) {
+      const float2* v = ms + fi * RS + m * K;
+      float sum = power(v[0]);
+      for (int k = 1; k < K; ++k) sum = add(sum, power(v[k]));
+      for (int k = 0; k < K; ++k)
+        loo_m[fi * RS + m * K + k] = sub(sum, power(v[k]));
+    }
+  __syncthreads();
+
+  const int c_first = EMG_MAX ? threadIdx.x : warp;
+  const int c_step = EMG_MAX ? blockDim.x : n_warps;
+  for (int c = c_first; c < cells; c += c_step) {
+    const int fi = c / E, e = c - fi * E;
+    const CellRT x(eeg, wk, F, E, f0 + fi, e, K);
+    const float2* ms_f = ms + fi * RS;
+    const float* lm_f = loo_m + fi * RS;
+    if (EMG_MAX) {
+      // the scan of msc_jackknife_kernel at L = 1
+      float best_c = coherence_mean_rt(x, ms_f, lm_f);
+      int best_m = 0;
+      for (int m = 1; m < M; ++m) {
+        const float cm = coherence_mean_rt(x, ms_f + m * K, lm_f + m * K);
+        if (cm > best_c) {
+          best_c = cm;
+          best_m = m;
+        }
+      }
+      float cm, cl, cu;
+      jackknife_rt(x, ms_f + best_m * K, lm_f + best_m * K, t_crit, cm, cl,
+                   cu);
+      const size_t cell = ((size_t)w * F + f0) * E + c;
+      coh[cell] = cm;
+      lo[cell] = cl;
+      hi[cell] = cu;
+    } else {
+      const size_t row = (((size_t)w * F + f0) * E + c) * M;
+      for (int m = lane; m < M; m += 32) {
+        float cm, cl, cu;
+        jackknife_rt(x, ms_f + m * K, lm_f + m * K, t_crit, cm, cl, cu);
+        coh[row + m] = cm;
+        lo[row + m] = cl;
+        hi[row + m] = cu;
+      }
+    }
+  }
+}
+
+// FB frequencies a block: ~cells (f, e) cells, within the shared memory a
+// block may hold and the F frequencies there are; 0 where one frequency's
+// EMG spectra do not fit
+__host__ int frequencies_a_block(int K, int F, int E, int M, int cells,
+                                 int smem_max) {
+  const size_t per_f = ((size_t)K * M + 1) * (sizeof(float2) + sizeof(float));
+  int FB = E >= cells ? 1 : cells / E;
+  FB = (int)((size_t)FB * per_f > (size_t)smem_max ? smem_max / per_f : FB);
+  return FB < F ? FB : F;
+}
+
+__host__ cudaError_t optin_smem(int& smem_max) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(&smem_max,
+                                cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                device);
+}
+
+template <bool EMG_MAX>
+cudaError_t launch_rt(const float2* eeg, const float2* emg, float* coh,
+                      float* lo, float* hi, int W, int K, int F, int E,
+                      int M, float t_crit, cudaStream_t stream) {
+  auto kernel = msc_jackknife_rt_kernel<EMG_MAX>;
+  int smem_max = 0;
+  cudaError_t err = optin_smem(smem_max);
+  if (err != cudaSuccess) return err;
+  const int FB = frequencies_a_block(K, F, E, M, THREADS, smem_max);
+  if (FB < 1) return cudaErrorInvalidValue;     // K·M too large to stage
+  const size_t smem =
+      FB * ((size_t)K * M + 1) * (sizeof(float2) + sizeof(float));
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((F + FB - 1) / FB, W);
+  kernel<<<grid, THREADS, smem, stream>>>(eeg, emg, coh, lo, hi, K, F, E, M,
+                                          FB, t_crit);
+  return cudaGetLastError();
+}
+
 template <int K, bool EMG_MAX>
 cudaError_t launch(const float2* eeg, const float2* emg, float* coh,
                    float* lo, float* hi, int W, int F, int E, int M,
                    float t_crit, cudaStream_t stream) {
   auto kernel = msc_jackknife_kernel<K, EMG_MAX>;
-  int device = 0, smem_max = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  int smem_max = 0;
+  cudaError_t err = optin_smem(smem_max);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&smem_max,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               device);
-  if (err != cudaSuccess) return err;
-  // FB frequencies a block: ~THREADS working (f, e) threads, within the
-  // shared memory a block may hold and the F frequencies there are
-  const size_t per_f = ((size_t)K * M + 1) * (sizeof(float2) + sizeof(float));
-  // lanes per (f, e) in the EMG-max scan: 2 where E is narrow, so a
-  // block's shared memory serves twice the threads
+  // FB frequencies a block: ~THREADS working (f, e) threads.  Lanes per
+  // (f, e) in the EMG-max scan: 2 where E is narrow, so a block's shared
+  // memory serves twice the threads
   const int L = EMG_MAX && E < 32 ? 2 : 1;
-  const int cells = THREADS / L;
-  int FB = E >= cells ? 1 : cells / E;
-  FB = (int)((size_t)FB * per_f > (size_t)smem_max ? smem_max / per_f : FB);
-  FB = FB < F ? FB : F;
+  const int FB = frequencies_a_block(K, F, E, M, THREADS / L, smem_max);
   if (FB < 1) return cudaErrorInvalidValue;     // M too large to stage
-  const size_t smem = FB * per_f;
+  const size_t smem =
+      FB * ((size_t)K * M + 1) * (sizeof(float2) + sizeof(float));
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -469,19 +685,28 @@ extern "C" int mba_msc_jackknife(const void* eeg, const void* emg,
                                  void* coh, void* lo, void* hi, int W,
                                  int K, int F, int E, int M, float t_crit,
                                  int emg_max, void* stream) {
-  if (W <= 0 || W > 65535 || F <= 0 || E <= 0 || M <= 0)
+  if (W <= 0 || W > 65535 || F <= 0 || E <= 0 || M <= 0 || K < 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define MBA_CASE(k)                                                       \
+  case k:                                                                 \
+    return launch_k<k>(eeg, emg, coh, lo, hi, W, F, E, M, t_crit, emg_max, \
+                       s);
   switch (K) {
-    case 2: return launch_k<2>(eeg, emg, coh, lo, hi, W, F, E, M, t_crit, emg_max, s);
-    case 3: return launch_k<3>(eeg, emg, coh, lo, hi, W, F, E, M, t_crit, emg_max, s);
-    case 4: return launch_k<4>(eeg, emg, coh, lo, hi, W, F, E, M, t_crit, emg_max, s);
-    case 5: return launch_k<5>(eeg, emg, coh, lo, hi, W, F, E, M, t_crit, emg_max, s);
-    case 6: return launch_k<6>(eeg, emg, coh, lo, hi, W, F, E, M, t_crit, emg_max, s);
-    case 7: return launch_k<7>(eeg, emg, coh, lo, hi, W, F, E, M, t_crit, emg_max, s);
-    case 8: return launch_k<8>(eeg, emg, coh, lo, hi, W, F, E, M, t_crit, emg_max, s);
-    default: return (int)cudaErrorInvalidValue;
+    MBA_CASE(2) MBA_CASE(3) MBA_CASE(4) MBA_CASE(5) MBA_CASE(6) MBA_CASE(7)
+    MBA_CASE(8) MBA_CASE(9) MBA_CASE(10) MBA_CASE(11) MBA_CASE(12)
+    MBA_CASE(13) MBA_CASE(14) MBA_CASE(15) MBA_CASE(16)
+    default: break;
   }
+#undef MBA_CASE
+  const float2* e = static_cast<const float2*>(eeg);
+  const float2* m = static_cast<const float2*>(emg);
+  float* c = static_cast<float*>(coh);
+  float* l = static_cast<float*>(lo);
+  float* h = static_cast<float*>(hi);
+  return (int)(emg_max
+      ? launch_rt<true>(e, m, c, l, h, W, K, F, E, M, t_crit, s)
+      : launch_rt<false>(e, m, c, l, h, W, K, F, E, M, t_crit, s));
 }
 
 extern "C" const char* mba_error_string(int code) {

@@ -18,7 +18,6 @@ never imports ``mba_tpu``.
 from __future__ import annotations
 
 import numpy as np
-import pandas as pd
 
 
 def _quote(name: str) -> str:
@@ -43,6 +42,7 @@ def apply_reference_categories(df: pd.DataFrame, condition_vars: dict,
         if var_type != "categorical" or var_name not in reference_categories:
             continue
         ref = reference_categories[var_name]
+        import pandas as pd     # the package imports without pandas
         if not isinstance(df[var_name].dtype, pd.CategoricalDtype):
             df[var_name] = df[var_name].astype("category")
         current = df[var_name].cat.categories.tolist()
@@ -85,6 +85,7 @@ def build_formula(response_var: str, condition_vars: dict,
 
 def _encode_term(df: pd.DataFrame, name: str, is_categorical: bool):
     """→ (columns (n, k) float array, per-column patsy labels)."""
+    import pandas as pd
     if is_categorical:
         cat = df[name]
         if not isinstance(cat.dtype, pd.CategoricalDtype):

@@ -5,9 +5,9 @@
 system ``g++`` on first use into ``mba_tpu_torch/_build/`` (listed in
 ``.gitignore``), never beside its source; the library name carries a
 hash of the source and flags, so a changed source rebuilds and an
-unchanged one loads at once.  The JAX package's int8/int16 upload
-quantizer (``quantshim.cpp``) is a TPU-link workaround and is not
-ported.
+unchanged one loads at once.  The JAX package's native int8/int16
+upload quantizer (``quantshim.cpp``) is not ported: its numpy form,
+bit-identical, is ``native/quantize.py``.
 """
 from __future__ import annotations
 

@@ -28,14 +28,15 @@ import numpy as np
 import torch
 from scipy.stats import t as _t_dist
 
-from mba_tpu_torch._device import (entry_device, not_ported, synchronize,
+from mba_tpu_torch._device import (dtype_name, entry_device, synchronize,
                                    to_device)
-from mba_tpu_torch.ops.cuda_msc import (K_MAX, coherence_ratio,
-                                        fisher_atanh, inverse_fisher_atanh,
-                                        msc_jackknife)
+from mba_tpu_torch.native.quantize import quantize_int16_per_channel
+from mba_tpu_torch.ops.cuda_msc import (coherence_ratio, fisher_atanh,
+                                        inverse_fisher_atanh, msc_jackknife)
 from mba_tpu_torch.ops.dpss import (cmc_independence_threshold_host,
                                     filtered_tapers)
 from mba_tpu_torch.ops.framing import frame_signal, window_grid
+from mba_tpu_torch.utils.transfer import download_quantized
 
 __all__ = ["fisher_atanh", "inverse_fisher_atanh",
            "cmc_independence_threshold", "multitaper_msc",
@@ -121,10 +122,56 @@ def _msc_all_windows(eeg, emg, starts, tapers, inv_fs_n, t_crit,
     return {key: torch.cat(vals) for key, vals in parts.items()}
 
 
-def _is_float_input(x) -> bool:
-    if isinstance(x, torch.Tensor):
-        return x.dtype.is_floating_point
-    return np.issubdtype(np.asarray(x).dtype, np.floating)
+def _transfer_kind(transfer_dtype):
+    """``transfer_dtype`` → (None | 'int' | 'float', its numpy or torch
+    type): int16/int8 take the quantized download, float16/bfloat16 a
+    cast on the device, float32 and None neither."""
+    name = "float32" if transfer_dtype is None else dtype_name(transfer_dtype)
+    if name in ("int16", "int8"):
+        return "int", np.dtype(name)
+    if name in ("float16", "bfloat16"):
+        return "float", getattr(torch, name)
+    if name != "float32":
+        raise ValueError("transfer_dtype must be float16, bfloat16, int16, "
+                         f"int8, float32 or None, got {transfer_dtype!r}")
+    return None, None
+
+
+def _upload(x, axis: int, input_transfer, device) -> torch.Tensor:
+    """One signal on ``device`` as (n_samples, n_channels), in the type
+    it crossed in.  With ``input_transfer='int16'`` host input other than
+    int16 is quantized per channel on the host first
+    (``coherence.py:349-363``)."""
+    if input_transfer == "int16" and not isinstance(x, torch.Tensor):
+        x = np.asarray(x)
+        if x.dtype != np.int16:
+            x = np.asarray(x, np.float32)
+            x = quantize_int16_per_channel(x.T if axis == 1 else x)
+            axis = 0
+    x = to_device(x, device)
+    return x.T if axis == 1 else x
+
+
+def _download(device_out: dict, kind, td, n_active: int):
+    """The results to the host as float32 numpy, in one download each:
+    float32, cast to ``td`` on the device first, or through the per-lane
+    quantizer (``coherence.py:427-446``).  Returns (dict, bytes)."""
+    if kind == "int":
+        compact, n_bytes = {}, 0
+        for key, val in device_out.items():
+            # per-(freq, channel) lanes where their sidecars (2·4 bytes a
+            # lane) stay under a tenth of the integer payload, judged on
+            # the active window count
+            fine = 8.0 <= 0.1 * td.itemsize * n_active
+            compact[key], nb, _ = download_quantized(
+                val, td, lane_ndim=val.ndim - 1 if fine else 1)
+            n_bytes += nb
+        return compact, n_bytes
+    if kind == "float":
+        device_out = {key: val.to(td) for key, val in device_out.items()}
+    n_bytes = sum(v.numel() * v.element_size() for v in device_out.values())
+    return ({key: val.cpu().to(torch.float32).numpy()
+             for key, val in device_out.items()}, n_bytes)
 
 
 def multitaper_msc(
@@ -163,26 +210,23 @@ def multitaper_msc(
     unless ``device="cpu"`` is given.  Integer ADC-count inputs
     (int16/int8) are accepted and cast to float32 on the device.
 
-    Not in this port yet (each raises ``NotImplementedError``): a
-    ``transfer_dtype`` other than float32 (the quantized and float16
-    downloads) and ``input_transfer='int16'`` on float input (the host
-    quantizer) — ROADMAP A-list, "unsupported options"; and the jackknife
-    on the card with more than 8 tapers (kernel B1's limit; the CPU takes
-    any K).
+    ``transfer_dtype``: a float type (``np.float16``, ``torch.bfloat16``)
+    casts each result on the device before the download; ``np.int16`` /
+    ``np.int8`` download each result through the affine per-lane
+    quantizer of ``utils.transfer.download_quantized``, with one lane per
+    (frequency, EEG[, EMG]) cell where the sidecars cost at most a tenth
+    of the payload (judged on the active window count), else one per
+    channel.  The arithmetic stays float32 either way.
+    ``input_transfer='int16'`` quantizes host float input per channel to
+    int16 (``native.quantize_int16_per_channel``), uploads the integers
+    and casts them to float32 on the device; coherence is invariant to
+    the per-channel scale, so only the signal's rounding remains.  int16
+    host input and tensors upload as they are.  ``collect_timings``
+    reports the bytes that crossed each way.
     """
-    if transfer_dtype is not None and \
-            np.dtype(transfer_dtype) != np.dtype(np.float32):
-        raise NotImplementedError(
-            f"transfer_dtype={transfer_dtype!r} (reduced-precision "
-            "download) is not ported; see ROADMAP 'Unsupported options'")
     if input_transfer not in (None, "int16"):
         raise ValueError(f"unknown input_transfer {input_transfer!r}")
-    if input_transfer == "int16" and (_is_float_input(eeg_array)
-                                      or _is_float_input(emg_array)):
-        raise NotImplementedError(
-            "input_transfer='int16' on float input (host int16 quantizer) "
-            "is not ported; pass int16 ADC counts or float32 without it "
-            "(ROADMAP 'Unsupported options')")
+    td_kind, td = _transfer_kind(transfer_dtype)
     device = entry_device(device, eeg_array, emg_array)
 
     eeg_shape = tuple(np.shape(eeg_array))
@@ -209,10 +253,6 @@ def multitaper_msc(
     K = tapers.shape[0]
     if use_jackknife and K < 2:
         raise ValueError("jackknife requires at least 2 tapers")
-    if use_jackknife and device.type == "cuda" and K > K_MAX:
-        raise not_ported(f"use_jackknife with K={K} tapers on the card "
-                         f"(kernel B1 takes K <= {K_MAX})",
-                         "A.11, unsupported options")
 
     starts, time_centers = window_grid(
         n_samples, window_samples, hop_samples, sampling_freq,
@@ -256,14 +296,10 @@ def multitaper_msc(
 
     timings: dict | None = {} if collect_timings else None
     t0 = time.perf_counter()
-    eeg = to_device(eeg_array, device)
-    emg = to_device(emg_array, device)
+    eeg = _upload(eeg_array, eeg_axis, input_transfer, device)
+    emg = _upload(emg_array, emg_axis, input_transfer, device)
     upload_bytes = sum(x.numel() * x.element_size() for x in (eeg, emg))
     eeg, emg = eeg.to(torch.float32), emg.to(torch.float32)
-    if eeg_axis == 1:
-        eeg = eeg.T
-    if emg_axis == 1:
-        emg = emg.T
     tapers_t = torch.as_tensor(tapers, dtype=torch.float32, device=device)
     if timings is not None:
         synchronize(device)
@@ -283,12 +319,10 @@ def multitaper_msc(
             synchronize(device)
             timings["compute_sec"] = round(time.perf_counter() - t0, 3)
             t0 = time.perf_counter()
-        compact = {key: val.cpu().numpy()
-                   for key, val in device_out.items()}
+        compact, dl_bytes = _download(device_out, td_kind, td, n_active)
         if timings is not None:
             timings["download_sec"] = round(time.perf_counter() - t0, 3)
-            timings["download_bytes"] = int(
-                sum(v.nbytes for v in compact.values()))
+            timings["download_bytes"] = int(dl_bytes)
     else:
         shape_tail = (n_freqs_out, n_eeg) if aggregate_emg_max \
             else (n_freqs_out, n_eeg, n_emg)

@@ -31,7 +31,10 @@ matmuls (``'auto'``/``'gram'``), and the chunked window pass of
 ``rotation_coeffs.py`` whose pair products run through kernel B3
 (``'pallas'``) or its plain version (``'xla'``).
 ``rotation_mode='per_window'`` draws an independent rotation per window
-(:func:`null_chunk_pw`).
+(:func:`null_chunk_pw`).  ``compute_dtype`` bfloat16 or float16 rounds
+the contraction's operands once, with float32 products and sums (B2's
+16-bit instance); ``transfer_dtype`` int16/int8/float16 converts a float
+cohort on the host before its upload (:func:`upload_quantizer`).
 :func:`cohort_msc_fft_null` is the classic full-FFT phase-randomisation
 engine, and :func:`cohort_msc_null` picks between it and the rotation
 engine by an estimate of the full-FFT engine's flops.
@@ -45,11 +48,13 @@ import numpy as np
 import torch
 
 from mba_tpu_torch import _dist
-from mba_tpu_torch._device import (entry_device, not_ported, synchronize,
+from mba_tpu_torch._device import (dtype_name, entry_device, synchronize,
                                    to_device)
 from mba_tpu_torch._dist import check_mesh, flat_index, mesh_entry_device
+from mba_tpu_torch.native.quantize import (quantize_int8_per_channel,
+                                           quantize_int16_per_channel)
 from mba_tpu_torch.ops import cuda_prng, prng
-from mba_tpu_torch.ops.cuda_coeffs import _F32_TINY, K_MAX as COEFF_K_MAX
+from mba_tpu_torch.ops.cuda_coeffs import _F32_TINY
 from mba_tpu_torch.ops.cuda_null import (feature_rows, null_epilogue,
                                          null_features, null_tile,
                                          null_tile_plain,
@@ -66,6 +71,42 @@ from mba_tpu_torch.ops.rotation_coeffs import (band_spectra, pad_windows,
 # 12 s × 8×8, 200 surrogates) runs in about 3 s at its median warm rate
 # of 0.98e12 flop/s on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md)
 FFT_FLOP_BUDGET = {"cpu": 2e11, "cuda": 3e12}
+
+
+def compute_dtype_of(compute_dtype) -> torch.dtype:
+    """The contraction's operand type: None and float32 → float32;
+    bfloat16 and float16 by a torch, numpy or JAX type or by name."""
+    name = "float32" if compute_dtype is None else dtype_name(compute_dtype)
+    if name not in ("float32", "bfloat16", "float16"):
+        raise ValueError("compute_dtype must be float32, bfloat16 or "
+                         f"float16, got {compute_dtype!r}")
+    return getattr(torch, name)
+
+
+def upload_quantizer(transfer_dtype, eeg_cohort, emg_cohort):
+    """The host conversion of a float cohort for ``transfer_dtype``
+    (``cohort_null.py:1034-1056``) into a CPU tensor, or None where the
+    cohort travels as it is: no ``transfer_dtype`` or float32, tensors
+    (their caller owns placement and precision), or integer ADC counts
+    already of the integer ``transfer_dtype`` (the passthrough).
+    int16/int8 quantize per (subject, channel) peak, float16/bfloat16
+    cast."""
+    name = "float32" if transfer_dtype is None else dtype_name(transfer_dtype)
+    if name == "float32" or any(
+            isinstance(x, torch.Tensor) for x in (eeg_cohort, emg_cohort)):
+        return None
+    if name in ("int16", "int8"):
+        if {np.asarray(x).dtype for x in (eeg_cohort, emg_cohort)} \
+                == {np.dtype(name)}:
+            return None
+        quant = (quantize_int16_per_channel if name == "int16"
+                 else quantize_int8_per_channel)
+        return lambda x: torch.from_numpy(quant(np.asarray(x, np.float32)))
+    if name not in ("float16", "bfloat16"):
+        raise ValueError("transfer_dtype must be float16, bfloat16, int16, "
+                         f"int8, float32 or None, got {transfer_dtype!r}")
+    return lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(
+        getattr(torch, name))
 
 
 def phase_features(phi: torch.Tensor) -> torch.Tensor:
@@ -122,9 +163,10 @@ def cohort_epilogue_pw(bases, coefws):
 class NullState:
     """What the surrogate loop needs, resident on the device.
 
-    base_flat / observed_flat: (F, N) float32; coefT: (F, J·P, N) float32
+    base_flat / observed_flat: (F, N) float32; coefT: (F, J·P, N)
     (``prepare_null_coeffs`` layout), or (Wp, F, J·P, N) in the
-    per-window mode; n_subjects J; n_feats P = K(K−1).
+    per-window mode, in the contraction's operand type (float32, or
+    bfloat16/float16 rounded once); n_subjects J; n_feats P = K(K−1).
     """
     base_flat: torch.Tensor
     observed_flat: torch.Tensor
@@ -134,13 +176,15 @@ class NullState:
 
 
 def null_state(base_cohort: torch.Tensor, coef_all: torch.Tensor,
-               observed_flat: torch.Tensor) -> NullState:
+               observed_flat: torch.Tensor,
+               compute_dtype: torch.dtype = torch.float32) -> NullState:
     """coef_all (J, F, N, P), or (Wp, J, F, N, P) per window."""
     *_, J, nF, N, P = coef_all.shape
     return NullState(
         base_flat=base_cohort.reshape(nF, N).to(torch.float32).contiguous(),
         observed_flat=observed_flat.to(torch.float32).contiguous(),
-        coefT=prepare_null_coeffs(coef_all), n_subjects=J, n_feats=P)
+        coefT=prepare_null_coeffs(coef_all, compute_dtype), n_subjects=J,
+        n_feats=P)
 
 
 def draw_phases(key, J: int, n_chunk: int, K: int, nF: int, device
@@ -155,10 +199,11 @@ def null_chunk(phi: torch.Tensor, state: NullState):
     """One chunk of surrogates through the surrogate tile.
 
     phi: (J, S, K, F).  Returns (max_stat (S,), counts increment (F, N)).
+    The features are rounded once to the state's operand type.
     """
-    G = null_features(phase_features(phi))              # (F, J·P, S)
+    G = null_features(phase_features(phi), state.coefT.dtype)  # (F, J·P, S)
     return null_tile(G, state.coefT, state.base_flat, state.observed_flat,
-                     state.n_subjects)
+                     state.n_subjects, phi.shape[1])
 
 
 def window_phases(key, Wp: int, J: int, n_chunk: int, K: int, nF: int,
@@ -177,28 +222,39 @@ def null_chunk_pw(phases, state: NullState):
     phases: one (J, S, K, F) tensor per window, Wp in all (an iterable,
     so only one window's features are alive at a time); state.coefT
     (Wp, F, J·P, N).  The window contributions are summed with ``bmm``
-    in window order, then the plain surrogate tile's epilogue.  Returns
+    in window order, then the plain surrogate tile's epilogue; 16-bit
+    operands are rounded and widened to float32 for the product, as the
+    JAX ``dot_general`` takes them (``cohort_null.py:446-449``).  Returns
     (max_stat (S,), counts increment (F, N)).
     """
+    dtype = state.coefT.dtype
     acc = None
     for w, phi in enumerate(phases):
-        inc = torch.bmm(feature_rows(phase_features(phi)), state.coefT[w])
+        rows = feature_rows(phase_features(phi))
+        coef_w = state.coefT[w]
+        if dtype != torch.float32:
+            rows, coef_w = rows.to(dtype).float(), coef_w.float()
+        inc = torch.bmm(rows, coef_w)
         acc = inc if acc is None else acc.add_(inc)
     stat = state.base_flat[:, None, :] + acc / state.n_subjects
     return null_epilogue(stat, state.observed_flat)
 
 
-def _null_chunk_core(phi, coef_all, base_cohort, observed, counts):
+def _null_chunk_core(phi, coef_all, base_cohort, observed, counts,
+                     compute_dtype: torch.dtype = torch.float32):
     """One surrogate chunk in the JAX package's layout
     (``cohort_null.py:716-736``), φ given explicitly, through the plain
-    surrogate tile: the kernel's layout and arithmetic, without it.
+    surrogate tile: the kernel's layout and arithmetic, without it.  A
+    16-bit ``compute_dtype`` rounds both operands once, with float32
+    products and sums (``:729-732``).
 
     coef_all: (J, F, N, P); base_cohort/observed: (F, N); phi:
     (J, S, K, F).  Returns (max_stat (S,), counts + exceedances).
     """
-    G = null_features(phase_features(phi))
-    max_stat, inc = null_tile_plain(G, prepare_null_coeffs(coef_all),
-                                    base_cohort, observed, coef_all.shape[0])
+    G = null_features(phase_features(phi), compute_dtype)
+    max_stat, inc = null_tile_plain(
+        G, prepare_null_coeffs(coef_all, compute_dtype), base_cohort,
+        observed, coef_all.shape[0], phi.shape[1])
     return max_stat, counts + inc
 
 
@@ -292,7 +348,18 @@ def cohort_msc_rotation_null(
     :func:`draw_phases` of ``sub`` (of ``fold_in(sub, w)`` per window in
     the per-window mode, :func:`window_phases`), so at equal
     ``surrogate_chunk`` a seed gives the JAX package's phases on either
-    device.  The contraction runs in float32.
+    device.  The contraction runs in ``compute_dtype`` (default float32,
+    as the JAX package off a TPU; bfloat16 or float16 round G and the
+    coefficients once, and the products and sums stay float32).
+
+    ``transfer_dtype`` on a float host cohort: int16/int8 quantize each
+    (subject, channel) to its peak on the host
+    (``native.quantize_int16_per_channel``; the scale cancels in MSC), a
+    float type casts; the converted arrays upload and every engine casts
+    them to float32 on the device.  Integer ADC counts of the named
+    integer type pass as they are; tensors are never converted.
+    ``timings['quantize_sec']`` is the host conversion's seconds and
+    ``upload_bytes`` the bytes that crossed.
 
     ``coeff_engine``: ``'auto'`` and ``'gram'`` run the gram matmuls;
     ``'pallas'`` the chunked window pass through kernel B3 (its plain
@@ -317,12 +384,6 @@ def cohort_msc_rotation_null(
     their maxima: ``n_ranks · surrogate_chunk`` surrogates a round.  The
     mesh decides the device (a ``device`` naming another raises), and
     the per-window mode refuses a mesh, as in the JAX package.
-
-    Not ported yet (each raises ``NotImplementedError``):
-    ``compute_dtype`` other than float32, a ``transfer_dtype`` other
-    than float32 or the ADC-count passthrough, and ``coeff_engine=
-    'pallas'`` on the card with more than 8 tapers (the CPU runs the
-    plain pair pass at any K).
     """
     if rotation_mode not in ("shared", "per_window"):
         raise ValueError("rotation_mode must be 'shared' or 'per_window', "
@@ -337,20 +398,8 @@ def cohort_msc_rotation_null(
     if coeff_engine not in ("auto", "gram", "pallas", "xla"):
         raise ValueError("coeff_engine must be 'auto', 'gram', 'pallas' "
                          f"or 'xla', got {coeff_engine!r}")
-    if compute_dtype is not None and compute_dtype not in (
-            torch.float32, np.float32, "float32"):
-        raise not_ported(f"compute_dtype={compute_dtype!r}",
-                          "'Unsupported options'")
-    td = np.dtype(transfer_dtype) if transfer_dtype is not None else None
-    if td is not None and td != np.dtype(np.float32):
-        dtypes = {np.asarray(x).dtype if not isinstance(x, torch.Tensor)
-                  else x.dtype for x in (eeg_cohort, emg_cohort)}
-        passthrough = td in (np.dtype(np.int16), np.dtype(np.int8)) \
-            and dtypes == {td}
-        if not passthrough:
-            raise not_ported(f"transfer_dtype={transfer_dtype!r} "
-                              "(host quantized upload)",
-                              "'Unsupported options'")
+    cdtype = compute_dtype_of(compute_dtype)
+    quantize = upload_quantizer(transfer_dtype, eeg_cohort, emg_cohort)
     if mesh is None:
         device = entry_device(device, eeg_cohort, emg_cohort)
     else:
@@ -403,10 +452,6 @@ def cohort_msc_rotation_null(
     engine = "gram" if coeff_engine == "auto" else coeff_engine
     if per_window:
         engine = "xla"                # per-window keeps the scan engine
-    if engine == "pallas" and device.type == "cuda" and K > COEFF_K_MAX:
-        raise not_ported(f"coeff_engine='pallas' with K={K} tapers on the "
-                         f"card (kernel B3 takes K <= {COEFF_K_MAX})",
-                         "A.11, unsupported options")
 
     # ---- precompute all-subject rotation coefficients (device-resident) --
     t_pre0 = time.perf_counter()
@@ -426,6 +471,19 @@ def cohort_msc_rotation_null(
             window_samples, lo, hi, wc, engine=engine,
             per_window=per_window)
 
+    t_q = 0.0
+
+    def link(x) -> torch.Tensor:
+        """``x`` on the device, converted on the host first where
+        ``transfer_dtype`` asks for it (also timed apart: quantize_sec)."""
+        nonlocal t_q
+        if quantize is None:
+            return to_device(x, device)
+        t0 = time.perf_counter()
+        x = quantize(x)
+        t_q += time.perf_counter() - t0
+        return x.to(device)
+
     t_up = t_co = 0.0
     upload_bytes = 0
     bases, coefs = [], []
@@ -443,8 +501,8 @@ def cohort_msc_rotation_null(
             subjects = [min(j, J - 1) for j in range(r * jl, (r + 1) * jl)]
         for j in subjects:
             t0 = time.perf_counter()
-            eeg_j = to_device(eeg_cohort[j], device)
-            emg_j = to_device(emg_cohort[j], device)
+            eeg_j = link(eeg_cohort[j])
+            emg_j = link(emg_cohort[j])
             synchronize(device)
             t_up += time.perf_counter() - t0
             upload_bytes += _nbytes(eeg_j) + _nbytes(emg_j)
@@ -466,8 +524,8 @@ def cohort_msc_rotation_null(
     else:
         # fused (cohort_null.py:1059-1080): the whole cohort first
         t0 = time.perf_counter()
-        eeg_d = to_device(eeg_cohort, device)
-        emg_d = to_device(emg_cohort, device)
+        eeg_d = link(eeg_cohort)
+        emg_d = link(emg_cohort)
         synchronize(device)
         t_up = time.perf_counter() - t0
         upload_bytes = _nbytes(eeg_d) + _nbytes(emg_d)
@@ -485,7 +543,9 @@ def cohort_msc_rotation_null(
     observed = observed_flat.reshape(nF, nE, nM).cpu().numpy()
     P_feats = int(coef_all.shape[-1])
     t_precompute = time.perf_counter() - t_pre0
-    t_stage = dict(upload_sec=round(t_up, 3), coeffs_sec=round(t_co, 3),
+    # upload_sec includes the host conversion, quantize_sec is it alone
+    t_stage = dict(quantize_sec=round(t_q, 3), upload_sec=round(t_up, 3),
+                   coeffs_sec=round(t_co, 3),
                    upload_bytes=int(upload_bytes), coeff_engine=engine)
     if mesh is not None:
         t_stage["coeffs_shard_devices"] = mesh.size()
@@ -514,7 +574,7 @@ def cohort_msc_rotation_null(
 
     # ---- surrogate chunks ------------------------------------------------
     t_null0 = time.perf_counter()
-    state = null_state(base_cohort, coef_all, observed_flat)
+    state = null_state(base_cohort, coef_all, observed_flat, cdtype)
     del coef_all
     counts = torch.zeros((nF, nE * nM), dtype=torch.int32, device=device)
     chunk = int(min(surrogate_chunk, n_surrogates))
@@ -566,7 +626,7 @@ def cohort_msc_rotation_null(
             "band_bins": (lo, hi),
             "n_subjects": J,
             "rotation_mode": rotation_mode,
-            "compute_dtype": "float32",
+            "compute_dtype": str(cdtype).removeprefix("torch."),
             "contraction_flops": float(2 * n_total * nF * nE * nM * J
                                        * P_feats * (Wp if per_window
                                                     else 1)),

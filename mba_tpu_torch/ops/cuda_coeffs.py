@@ -15,7 +15,8 @@ below, the chunk body of the JAX package's scan engine
 
 :func:`coeff_pairs` is the wrapper: CPU tensors run
 :func:`coeff_pairs_plain` (any K >= 2, as the JAX package's scan engine),
-CUDA tensors launch the kernel (2 <= K <= K_MAX) or raise.  Given
+CUDA tensors launch the kernel (any K >= 2: compile-time instances up to
+K = 16, a runtime-K instance above) or raise.  Given
 ``out=(diag, pr, pi)``, both add the chunk's sums to it in place, so a
 caller sums its chunks without allocating or adding per chunk.
 ``coeff_pairs.launches`` counts kernel launches.
@@ -37,7 +38,6 @@ from mba_tpu_torch import _build
 from mba_tpu_torch.ops.gram_coeffs import _pair_indices
 
 _F32_TINY = float(np.finfo(np.float32).tiny)
-K_MAX = 8            # the kernel is instantiated for 2 <= K <= K_MAX
 
 
 def taper_products(eeg_spec: torch.Tensor, emg_spec: torch.Tensor,
@@ -146,8 +146,7 @@ def coeff_pairs(eeg_spec: torch.Tensor, emg_spec: torch.Tensor,
     (P2, F, N))`` float32, N = E·M.  ``out``: three such tensors on the
     spectra's device, contiguous, to which the sums are added in place
     (each element once, ``out + sum``) and which are returned: a caller
-    sums its chunks without an extra pass.  Any K >= 2 on the CPU; the
-    kernel takes K <= K_MAX.
+    sums its chunks without an extra pass.  Any K >= 2.
     """
     _check(eeg_spec, emg_spec, weights)
     if out is not None:
@@ -158,8 +157,6 @@ def coeff_pairs(eeg_spec: torch.Tensor, emg_spec: torch.Tensor,
         raise ValueError(f"unsupported device {eeg_spec.device}")
     wc, K, nF, nE = eeg_spec.shape
     nM = emg_spec.shape[-1]
-    if K > K_MAX:
-        raise ValueError(f"kernel supports 2 <= K <= {K_MAX} tapers, got {K}")
     accumulate = out is not None
     if out is None:
         out = tuple(torch.empty(s, dtype=torch.float32,

@@ -11,7 +11,9 @@ device memory; the plain version below materialises them.
 
 :func:`msc_jackknife` is the wrapper: for CPU tensors it runs
 :func:`msc_jackknife_plain`, for CUDA tensors it launches the kernel or
-raises.  ``msc_jackknife.launches`` counts kernel launches.
+raises.  The kernel takes any K >= 2: compile-time instances up to
+K = 16 tapers, a runtime-K instance above.
+``msc_jackknife.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -21,7 +23,6 @@ from mba_tpu_torch import _build
 
 _F32_TINY = torch.finfo(torch.float32).tiny
 _FISHER_EPS = 1e-10
-K_MAX = 8            # the kernel is instantiated for 2 <= K <= K_MAX
 
 
 def fisher_atanh(coherence: torch.Tensor, eps: float = _FISHER_EPS
@@ -151,8 +152,8 @@ def msc_jackknife(eeg_fft: torch.Tensor, emg_fft: torch.Tensor,
         raise ValueError(f"unsupported device {eeg_fft.device}")
     W, K, F, E = eeg_fft.shape
     M = emg_fft.shape[-1]
-    if not 2 <= K <= K_MAX:
-        raise ValueError(f"kernel supports 2 <= K <= {K_MAX} tapers, got {K}")
+    if K < 2:
+        raise ValueError(f"the jackknife needs K >= 2 tapers, got {K}")
     out_shape = (W, F, E) if emg_max else (W, F, E, M)
     outs = [torch.empty(out_shape, dtype=torch.float32,
                         device=eeg_fft.device) for _ in range(3)]

@@ -11,6 +11,15 @@ materialises it.
 :func:`null_tile` is the wrapper: CPU tensors run :func:`null_tile_plain`,
 CUDA tensors launch the kernel or raise.  ``null_tile.launches`` counts
 kernel launches.
+
+Reduced precision (the null's ``compute_dtype``, ``pallas_null.py:137-
+186``): G and coefT may be bfloat16 or float16, each rounded once from
+float32 (:func:`null_features`, :func:`prepare_null_coeffs`), with the
+products and sums in float32; the kernel's instance for them widens each
+staged element, and the plain version is ``bmm`` of the rounded
+operands widened to float32.  The reduced G's surrogate axis is padded
+to a multiple of 8 (16-byte rows), so the real surrogate count S is
+passed apart.
 """
 from __future__ import annotations
 
@@ -19,28 +28,41 @@ import torch
 from mba_tpu_torch import _build
 
 CELL_TILE = 128      # cells per block: BN in csrc/null_tile.cu
+# operand types of the kernel's instances: the C entry point's ``kind``
+KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+REDUCED_ROWS = 8     # a 16-bit G's surrogate axis, padded: 16-byte rows
 
 
-def prepare_null_coeffs(coef_all: torch.Tensor) -> torch.Tensor:
+def prepare_null_coeffs(coef_all: torch.Tensor,
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """One-time relayout for the kernel (``pallas_null.py:137-150``).
 
-    coef_all: (..., J, nF, N, P) float32 → coefT (..., nF, J·P, N)
-    float32, contiguous (a leading window axis of the per-window mode is
-    kept).  Unlike the TPU layout, J·P is not padded: the kernel masks
-    its ragged last slice.
+    coef_all: (..., J, nF, N, P) float32 → coefT (..., nF, J·P, N) in
+    ``dtype`` (rounded once), contiguous (a leading window axis of the
+    per-window mode is kept).  Unlike the TPU layout, J·P is not padded:
+    the kernel masks its ragged last slice.
     """
     *lead, J, nF, N, P = coef_all.shape
-    return (coef_all.movedim(-1, -2).movedim(-4, -3)
-            .reshape(*lead, nF, J * P, N).to(torch.float32).contiguous())
+    return (coef_all.to(torch.float32).movedim(-1, -2).movedim(-4, -3)
+            .reshape(*lead, nF, J * P, N).to(dtype).contiguous())
 
 
-def null_features(G_jsfp: torch.Tensor) -> torch.Tensor:
+def null_features(G_jsfp: torch.Tensor,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Phase features (J, S, nF, P) → the kernel's k-major (nF, J·P, S)
     layout, flattened over (j, p) in the order of
     :func:`prepare_null_coeffs`: a J·P slice of it and of coefT is copied
-    to shared memory as it lies, with no transpose."""
+    to shared memory as it lies, with no transpose.  A 16-bit ``dtype``
+    rounds the features once and pads S with zeros to a multiple of
+    ``REDUCED_ROWS``, as ``pallas_null.py:170-175`` pads S_pad."""
     J, S, nF, P = G_jsfp.shape
-    return G_jsfp.permute(2, 0, 3, 1).reshape(nF, J * P, S).contiguous()
+    G = G_jsfp.permute(2, 0, 3, 1).reshape(nF, J * P, S)
+    if dtype == torch.float32:
+        return G.contiguous()
+    S_pad = -(-S // REDUCED_ROWS) * REDUCED_ROWS
+    out = torch.zeros((nF, J * P, S_pad), dtype=dtype, device=G.device)
+    out[..., :S] = G
+    return out
 
 
 def feature_rows(G_jsfp: torch.Tensor) -> torch.Tensor:
@@ -59,25 +81,37 @@ def null_epilogue(stat: torch.Tensor, obs: torch.Tensor):
 
 
 def null_tile_plain(G: torch.Tensor, coefT: torch.Tensor,
-                    base: torch.Tensor, obs: torch.Tensor, J: int):
-    """Plain PyTorch version: returns (max_stat (S,), counts (nF, N))."""
-    rows = G.transpose(1, 2).contiguous()      # feature_rows' layout
-    stat = base[:, None, :] + torch.bmm(rows, coefT) * (1.0 / J)
+                    base: torch.Tensor, obs: torch.Tensor, J: int,
+                    S: int | None = None):
+    """Plain PyTorch version: returns (max_stat (S,), counts (nF, N)).
+    16-bit operands are widened to float32 for the product."""
+    S = G.shape[2] if S is None else S
+    rows = G[..., :S].transpose(1, 2).to(torch.float32).contiguous()
+    stat = base[:, None, :] + torch.bmm(rows, coefT.to(torch.float32)) \
+        * (1.0 / J)
     return null_epilogue(stat, obs)
 
 
-def _check(G, coefT, base, obs) -> None:
-    for name, x in (("G", G), ("coefT", coefT), ("base", base),
-                    ("obs", obs)):
+def _check(G, coefT, base, obs, S) -> None:
+    if G.dtype not in KINDS:
+        raise TypeError(f"G must be float32, bfloat16 or float16, got "
+                        f"{G.dtype}")
+    if coefT.dtype != G.dtype:
+        raise TypeError(f"coefT is {coefT.dtype}, G {G.dtype}")
+    for name, x in (("base", base), ("obs", obs)):
         if x.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {x.dtype}")
+    for name, x in (("G", G), ("coefT", coefT), ("base", base),
+                    ("obs", obs)):
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if x.device != G.device:
             raise ValueError(f"{name} lies on {x.device}, G on {G.device}")
     if G.ndim != 3 or coefT.ndim != 3:
         raise ValueError("G must be (nF, JP, S) and coefT (nF, JP, N)")
-    nF, JP, S = G.shape
+    nF, JP, ldg = G.shape
+    if not 0 < S <= ldg:
+        raise ValueError(f"S={S} must lie in 1..{ldg} (G's surrogate axis)")
     if coefT.shape[:2] != (nF, JP):
         raise ValueError(f"coefT {tuple(coefT.shape)} does not match G "
                          f"{tuple(G.shape)}")
@@ -89,20 +123,22 @@ def _check(G, coefT, base, obs) -> None:
 
 
 def null_tile(G: torch.Tensor, coefT: torch.Tensor, base: torch.Tensor,
-              obs: torch.Tensor, J: int):
+              obs: torch.Tensor, J: int, S: int | None = None):
     """Surrogate statistic tile (see module docstring).
 
-    G: (nF, JP, S) float32 phase features (:func:`null_features`);
-    coefT: (nF, JP, N) float32;
-    base/obs: (nF, N) float32.  Returns (max_stat (S,) float32, counts
-    (nF, N) int32 — this chunk's exceedances, for the caller to add).
+    G: (nF, JP, ldg) phase features (:func:`null_features`) and coefT:
+    (nF, JP, N), both float32, bfloat16 or float16; base/obs: (nF, N)
+    float32; S: the real surrogates, the first S of G's ldg (default all).
+    Returns (max_stat (S,) float32, counts (nF, N) int32 — this chunk's
+    exceedances, for the caller to add).
     """
-    _check(G, coefT, base, obs)
+    S = G.shape[2] if S is None else int(S)
+    _check(G, coefT, base, obs, S)
     if G.device.type == "cpu":
-        return null_tile_plain(G, coefT, base, obs, J)
+        return null_tile_plain(G, coefT, base, obs, J, S)
     if G.device.type != "cuda":
         raise ValueError(f"unsupported device {G.device}")
-    nF, JP, S = G.shape
+    nF, JP, ldg = G.shape
     N = coefT.shape[2]
     n_tiles = -(-N // CELL_TILE)
     dev = G.device
@@ -116,7 +152,7 @@ def null_tile(G: torch.Tensor, coefT: torch.Tensor, base: torch.Tensor,
         code = lib.mba_null_tile(
             G.data_ptr(), coefT.data_ptr(), base.data_ptr(), obs.data_ptr(),
             partial.data_ptr(), counts.data_ptr(), max_stat.data_ptr(),
-            nF, S, JP, N, 1.0 / J, stream)
+            nF, S, ldg, JP, N, 1.0 / J, KINDS[G.dtype], stream)
     _build.check_launch(lib, code, "mba_null_tile")
     null_tile.launches += 1
     return max_stat, counts

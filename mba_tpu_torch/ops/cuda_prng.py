@@ -6,7 +6,8 @@ package's draws (``jax.random``, threefry2x32) on the CPU and on the
 card.  The plain version is ``ops/prng.py``; it launches ~150
 elementwise kernels a draw over int64 tensors, where the kernel runs the
 20 rounds of each draw in registers and writes only the result
-(``PERF.md`` gives both times).
+(``PERF.md`` gives both times).  :func:`permutation` is
+``jax.random.permutation`` of a range with its sort keys drawn here.
 
 :func:`threefry_draw` is the wrapper, and :func:`uniform_keys` draws
 for many keys in one launch: on the CPU they run the plain version, on
@@ -78,6 +79,14 @@ def uniform(key, shape, minval: float, maxval: float, device
     """``jax.random.uniform(key, shape, float32, minval, maxval)`` on
     ``device``."""
     return threefry_draw(key, shape, "uniform", device, minval, maxval)
+
+
+def permutation(key, n: int, device) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` (``prng.permutation``) on
+    ``device``, each round's sort keys drawn by :func:`threefry_draw`."""
+    return prng.permutation(
+        key, n, device,
+        bits=lambda k, shape, dev: threefry_draw(k, shape, "bits", dev))
 
 
 def uniform_keys(keys, shape, minval: float, maxval: float, device

@@ -5,11 +5,14 @@
   eigendecomposition on the host, the numerical-rank cap) and extended-
   Infomax natural-gradient learning (Lee, Girolami & Sejnowski 1999) with
   kurtosis-based sub/super-Gaussian switching, learning-rate annealing
-  and the weight-change stop, in the JAX package's ``'comb'`` batch
-  layout: the blocks are a fixed decimated comb whose order is rolled
-  each epoch by ``randint(sub, (), 0, n_blocks)`` after ``key, sub =
-  split(key)``.  The keys are ``jax.random``'s threefry (``ops/prng.py``,
-  on the host), so a seed gives the JAX package's shifts.
+  and the weight-change stop, in either of the JAX package's batch
+  layouts: ``'comb'``, a fixed decimated comb whose order is rolled each
+  epoch by ``randint(sub, (), 0, n_blocks)`` after ``key, sub =
+  split(key)``; or ``'reference'``, each epoch's blocks gathered as
+  ``x_white[permutation(sub, n_blocks·block)]`` (MNE's per-epoch sample
+  permutation, ``ica.py:52-64``).  The keys are ``jax.random``'s
+  threefry (``ops/prng.py``), so a seed gives the JAX package's shifts
+  and permutations.
 - :func:`label_components`: the feature-based classifier of
   ``ops/ic_classify.py`` (a host copy) on the sources; a tensor input
   ships only the 120-s spectral segment and the full-length moments to
@@ -20,10 +23,11 @@ An epoch is a serial chain of mini-batch steps, each a few tiny matmuls
 epoch is captured once per fit as a CUDA graph and replayed: the roll's
 gather, the steps, the kurtosis signs, the annealing and blow-up updates
 and the ``done`` flag run from device tensors, and the host writes the
-shift and reads ``done`` once an epoch.  On the CPU the same epoch runs
-eagerly.  ``batch_layout='reference'`` (the JAX package's per-epoch
-sample permutation) is not ported: ``jax.random.permutation`` breaks the
-ties of its sort in an order the port cannot reproduce (ROADMAP A11).
+shift and reads ``done`` once an epoch.  In the reference layout the
+graph reads its blocks from a static buffer instead, which the
+permutation's gather (its sort keys drawn by the threefry kernel, a
+stable sort, ``index_select``) fills on the stream before each replay.
+On the CPU the same epoch runs eagerly.
 """
 from __future__ import annotations
 
@@ -33,8 +37,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from mba_tpu_torch._device import entry_device, not_ported, to_device
-from mba_tpu_torch.ops import prng
+from mba_tpu_torch._device import entry_device, to_device
+from mba_tpu_torch.ops import cuda_prng, prng
 from mba_tpu_torch.ops.ic_classify import classify_components
 
 KURTOSIS_ROWS = 6000     # rows of the whitened data behind the signs
@@ -43,7 +47,9 @@ KURTOSIS_ROWS = 6000     # rows of the whitened data behind the signs
 @dataclass
 class _EpochState:
     """The device tensors one epoch reads and updates in place."""
-    x_comb: torch.Tensor      # (n_blocks, block, n): block b = rows i·nb + b
+    x_comb: torch.Tensor      # (n_blocks, block, n): 'comb', block b =
+                              # rows i·nb + b, rolled by the epoch;
+                              # 'reference', this epoch's gathered blocks
     x_kurt: torch.Tensor      # (≤ 6000, n): the rows behind the signs
     order: torch.Tensor       # arange(n_blocks), int64
     eye: torch.Tensor
@@ -57,13 +63,18 @@ class _EpochState:
 
 
 def _epoch(st: _EpochState, block: int, w_change_tol: float,
-           anneal_deg: float, anneal_step: float) -> None:
+           anneal_deg: float, anneal_step: float, roll: bool = True
+           ) -> None:
     """One extended-Infomax epoch, in place on ``st`` (capturable: no
     host reads).  Step: u = x_b·W, W += lrate·W·(block·I − u^T(s·tanh u
-    + u)), the JAX package's update with its two products fused."""
+    + u)), the JAX package's update with its two products fused.
+    ``roll``: the comb's blocks rolled by ``st.shift``; else the blocks
+    as ``st.x_comb`` holds them."""
     n_blocks = st.x_comb.shape[0]
-    data = st.x_comb.index_select(
-        0, torch.remainder(st.order - st.shift, n_blocks))    # jnp.roll
+    data = st.x_comb
+    if roll:
+        data = data.index_select(
+            0, torch.remainder(st.order - st.shift, n_blocks))  # jnp.roll
     w0 = st.w
     lr_block_eye = st.eye * (st.lrate * block)
     neg_lr = -st.lrate
@@ -111,16 +122,19 @@ def _extended_infomax(key, x_white: torch.Tensor, n_comp: int, block: int,
     """Extended Infomax on whitened data (T, n_comp) → (W (n_comp²) on
     the data's device, epochs run).  ``key``: a threefry key (a (2,)
     uint32 array, ``prng.prng_key(seed)``)."""
-    if batch_layout != "comb":
-        raise not_ported(f"batch_layout={batch_layout!r}", "A11")
+    if batch_layout not in ("comb", "reference"):
+        raise ValueError("batch_layout must be 'comb' or 'reference', got "
+                         f"{batch_layout!r}")
+    comb = batch_layout == "comb"
     device = x_white.device
     n_samples = x_white.shape[0]
     n_blocks = n_samples // block
     f32 = dict(dtype=torch.float32, device=device)
     eye = torch.eye(n_comp, **f32)
     st = _EpochState(
-        x_comb=x_white[:n_blocks * block].reshape(block, n_blocks, n_comp)
-        .transpose(0, 1).contiguous(),
+        x_comb=(x_white[:n_blocks * block].reshape(block, n_blocks, n_comp)
+                .transpose(0, 1).contiguous() if comb else
+                torch.empty((n_blocks, block, n_comp), **f32)),
         x_kurt=x_white[:min(n_samples, KURTOSIS_ROWS)],
         order=torch.arange(n_blocks, device=device),
         eye=eye, shift=torch.zeros((), dtype=torch.int64, device=device),
@@ -129,21 +143,33 @@ def _extended_infomax(key, x_white: torch.Tensor, n_comp: int, block: int,
         old_d_w=eye.clone(),
         step=torch.zeros((), dtype=torch.int32, device=device),
         done=torch.zeros((), dtype=torch.bool, device=device))
-    args = (block, w_change_tol, anneal_deg, anneal_step)
+    args = (block, w_change_tol, anneal_deg, anneal_step, comb)
 
-    def next_shift():
+    def next_input():
+        """The next epoch's shift ('comb'), or its permutation
+        ('reference', drawn on the device)."""
         nonlocal key
         key, sub = prng.split(key)
-        return int(prng.randint(sub, (), 0, n_blocks))
+        if comb:
+            return int(prng.randint(sub, (), 0, n_blocks))
+        return cuda_prng.permutation(sub, n_blocks * block, device)
+
+    def load(inp) -> None:
+        """Write an epoch's input where the epoch reads it."""
+        if comb:
+            st.shift.fill_(inp)
+        else:
+            torch.index_select(x_white, 0, inp,
+                               out=st.x_comb.view(-1, n_comp))
 
     graph = None
     t_capture = 0.0
     t0 = time.perf_counter()
-    shift = next_shift()
+    inp = next_input()
     n_iter = 0
     while n_iter < max_iter:
         if device.type != "cuda":
-            st.shift.fill_(shift)
+            load(inp)
             _epoch(st, *args)
         elif graph is None:
             # the first epoch runs eagerly on a side stream (the warm-up
@@ -151,7 +177,7 @@ def _extended_infomax(key, x_white: torch.Tensor, n_comp: int, block: int,
             side = torch.cuda.Stream(device)
             side.wait_stream(torch.cuda.current_stream(device))
             with torch.cuda.stream(side):
-                st.shift.fill_(shift)
+                load(inp)
                 _epoch(st, *args)
             torch.cuda.current_stream(device).wait_stream(side)
             tc = time.perf_counter()
@@ -160,10 +186,10 @@ def _extended_infomax(key, x_white: torch.Tensor, n_comp: int, block: int,
                 _epoch(st, *args)
             t_capture = time.perf_counter() - tc
         else:
-            st.shift.fill_(shift)
+            load(inp)                     # on the stream, before the replay
             graph.replay()
         n_iter += 1
-        shift = next_shift()              # while the card runs the epoch
+        inp = next_input()                # while the card runs the epoch
         if bool(st.done):
             break
     if timings_out is not None:
@@ -220,8 +246,6 @@ class InfomaxICA:
         if batch_layout not in ("comb", "reference"):
             raise ValueError("batch_layout must be 'comb' or "
                              f"'reference', got {batch_layout!r}")
-        if batch_layout == "reference":
-            raise not_ported("InfomaxICA(batch_layout='reference')", "A11")
         self.n_components = n_components
         self.max_iter = max_iter
         self.random_state = random_state

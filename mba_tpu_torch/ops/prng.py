@@ -17,7 +17,8 @@ and a 32-bit draw is the xor of threefry's two output words.
   :func:`fold_in`, computed on Python ints;
 - draws: :func:`random_bits` (``jax.random.bits``, uint32 values held in
   int64), :func:`uniform` (float32, ``jax.random.uniform``),
-  :func:`randint` (int32, ``jax.random.randint``).
+  :func:`randint` (int32, ``jax.random.randint``), :func:`permutation`
+  (``jax.random.permutation`` of a range).
 
 These are the plain versions: they run on whatever device they are
 given, one elementwise op at a time.  ``ops/cuda_prng.py`` is the
@@ -143,6 +144,24 @@ def fold_in(key, data: int) -> np.ndarray:
     (0, data) with ``data`` cut to uint32."""
     k0, k1 = key_words(key)
     return _as_key(*threefry2x32(k0, k1, 0, int(data) & MASK))
+
+
+def permutation(key, n: int, device="cpu", bits=random_bits
+                ) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` as int64 on ``device``: JAX's
+    ``_shuffle``, ``ceil(3·ln n / ln(2³²−1))`` rounds, each ``key, sub =
+    split(key)`` and a stable sort of the range by 32-bit ``bits(sub,
+    (n,), device)`` (``lax.sort_key_val`` is stable, so ties keep their
+    order).  The keys are uint32 values held in int64, which sort as
+    unsigned.  ``bits``: :func:`random_bits`, or the kernel's draw."""
+    n = int(n)
+    num_rounds = int(np.ceil(3 * np.log(max(1, n))
+                             / np.log(np.iinfo(np.uint32).max)))
+    x = torch.arange(n, device=device)
+    for _ in range(num_rounds):
+        key, sub = split(key)
+        x = x[torch.argsort(bits(sub, (n,), device), stable=True)]
+    return x
 
 
 def _rem(x, span: int):

@@ -27,11 +27,9 @@ import numpy as np
 import torch
 
 from mba_tpu_torch import _dist
-from mba_tpu_torch._device import not_ported
 from mba_tpu_torch._dist import check_mesh, flat_index, mesh_device
 from mba_tpu_torch.ops.coherence import (_auto_chunk, _msc_all_windows,
                                          jackknife_t_crit)
-from mba_tpu_torch.ops.cuda_msc import K_MAX
 from mba_tpu_torch.ops.dpss import filtered_tapers
 from mba_tpu_torch.ops.framing import window_grid
 from mba_tpu_torch.parallel.mesh import cohort_sharding
@@ -39,7 +37,7 @@ from mba_tpu_torch.utils import file_management as filemgmt
 
 
 def _window_setup(window_length_sec, sampling_freq, overlap_frac, nw,
-                  taper_eigenvalue_threshold, use_jackknife, device):
+                  taper_eigenvalue_threshold, use_jackknife):
     """(window_samples, hop, tapers, K), with the engine's checks."""
     window_samples = int(window_length_sec * sampling_freq)
     hop = int(window_samples * (1 - overlap_frac))
@@ -49,10 +47,6 @@ def _window_setup(window_length_sec, sampling_freq, overlap_frac, nw,
     K = int(tapers.shape[0])
     if use_jackknife and K < 2:
         raise ValueError("jackknife requires at least 2 tapers")
-    if use_jackknife and device.type == "cuda" and K > K_MAX:
-        raise not_ported(f"use_jackknife with K={K} tapers on the card "
-                         f"(kernel B1 takes K <= {K_MAX})",
-                         "A.11, unsupported options")
     return window_samples, hop, tapers, K
 
 
@@ -120,7 +114,7 @@ def cohort_multitaper_msc(
     n_emg = emg.shape[2]
     window_samples, hop, tapers, K = _window_setup(
         window_length_sec, sampling_freq, overlap_frac, nw,
-        taper_eigenvalue_threshold, use_jackknife, device)
+        taper_eigenvalue_threshold, use_jackknife)
     starts, time_centers = window_grid(
         n_samples, window_samples, hop, sampling_freq, convention="cmc")
     W = len(starts)
@@ -284,7 +278,7 @@ def time_sharded_msc(
     n_emg = emg.shape[1]
     window_samples, hop, tapers, K = _window_setup(
         window_length_sec, sampling_freq, overlap_frac, nw,
-        taper_eigenvalue_threshold, use_jackknife, device)
+        taper_eigenvalue_threshold, use_jackknife)
     halo = window_samples - hop
     starts, time_centers = window_grid(
         n_samples, window_samples, hop, sampling_freq, convention="cmc")

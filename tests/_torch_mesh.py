@@ -175,6 +175,9 @@ def two_rank_cases(mesh, artifact_dir):
     for engine in ("gram", "pallas"):
         out[f"rotation_{engine}"] = cohort_msc_rotation_null(
             reeg, remg, FS, mesh=mesh, coeff_engine=engine, **ROT_KW)
+    out["rotation_int16_bf16"] = cohort_msc_rotation_null(
+        reeg, remg, FS, mesh=mesh, transfer_dtype=np.int16,
+        compute_dtype="bfloat16", **ROT_KW)
     out["rotation_per_window_error"] = _error(
         cohort_msc_rotation_null, reeg, remg, FS, mesh=mesh,
         rotation_mode="per_window", **ROT_KW)

@@ -225,15 +225,48 @@ class TestMultitaperMsc:
                     "download_sec", "download_bytes"):
             assert key in got["timings"]
 
-    @pytest.mark.parametrize("kw", [
-        dict(transfer_dtype=np.int8),
-        dict(transfer_dtype=np.float16),
-        dict(input_transfer="int16"),
+    @pytest.mark.parametrize("input_transfer", [None, "int16"])
+    @pytest.mark.parametrize("transfer_dtype,step", [
+        (np.float16, 2.0 ** -11),     # an f16 ulp on [0.5, 1)
+        (np.int16, 1 / 65535),        # a lane's step: span ≤ 1 on [0, 1]
+        (np.int8, 1 / 255),
     ])
-    def test_unsupported_options_raise(self, kw):
+    def test_transfer_options_match_jax(self, transfer_dtype, step,
+                                        input_transfer):
+        """The reduced downloads and the host int16 upload against the
+        JAX package: within 5e-5 (2e-4 relative on the CIs) plus one step
+        of the transfer type, each package rounding its own float32
+        results; the download bytes equal.  The port's ``upload_bytes``
+        are the bytes that crossed (int16 here), the JAX package's the
+        float32 arrays they became."""
         eeg, emg = coupled_signals()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TC.multitaper_msc(eeg, emg, 256, device="cpu", **kw)
+        kw = dict(window_length_sec=1.0, transfer_dtype=transfer_dtype,
+                  input_transfer=input_transfer, collect_timings=True)
+        ref = JC.multitaper_msc(eeg, emg, 256, **kw)
+        got = TC.multitaper_msc(eeg, emg, 256, device="cpu", **kw)
+        for key in RESULT_KEYS:
+            assert got[key].dtype == np.float32
+        assert_dicts_close(got, ref, RESULT_KEYS[:1], atol=5e-5 + step)
+        assert_dicts_close(got, ref, RESULT_KEYS[1:], atol=5e-5 + step,
+                           rtol=2e-4)
+        assert got["timings"]["download_bytes"] == \
+            ref["timings"]["download_bytes"]
+        n_in = eeg.size + emg.size
+        assert got["timings"]["upload_bytes"] == \
+            n_in * (2 if input_transfer else 4)
+
+    @pytest.mark.parametrize("nw", [5, 8])
+    def test_jackknife_at_many_tapers_matches_jax(self, nw):
+        """nw = 5 and 8 (K = 9 and 15 tapers): the jackknife has no taper
+        limit on either device."""
+        eeg, emg = coupled_signals()
+        kw = dict(window_length_sec=1.0, nw=nw, aggregate_emg_max=True)
+        ref = JC.multitaper_msc(eeg, emg, 256, **kw)
+        got = TC.multitaper_msc(eeg, emg, 256, device="cpu", **kw)
+        assert got["metadata"]["K_tapers"] == \
+            ref["metadata"]["K_tapers"] == 2 * nw - 1
+        assert_dicts_close(got, ref, RESULT_KEYS[:1], atol=5e-5)
+        assert_dicts_close(got, ref, RESULT_KEYS[1:], atol=5e-5, rtol=2e-4)
 
     def test_validation_errors_match(self):
         eeg, emg = coupled_signals()

@@ -199,19 +199,139 @@ def test_rotation_null_precompute_only_and_adc_passthrough():
     assert got["metadata"]["timings"]["coeff_engine"] == "gram"
 
 
-@pytest.mark.parametrize("kw", [
-    dict(mesh=object()),
-    dict(compute_dtype=torch.bfloat16),
-    dict(transfer_dtype=np.int16),          # float input: host quantizer
-    dict(transfer_dtype=np.float16),
-])
+@pytest.mark.parametrize("kw", [dict(mesh=object())])
 def test_unsupported_options_raise(kw):
     eeg, emg = _cohort(J=1, n_sec=8.0)
-    if "mesh" in kw:          # a mesh is ported; anything else is refused
-        with pytest.raises(TypeError, match="DeviceMesh"):
-            TN.cohort_msc_rotation_null(eeg, emg, FS, n_surrogates=10,
-                                        device="cpu", **kw)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TN.cohort_msc_rotation_null(eeg, emg, FS, n_surrogates=10,
                                     device="cpu", **kw)
+
+
+JAX_DTYPES = {torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16}
+
+
+@pytest.mark.parametrize("overlap_upload", [True, False])
+@pytest.mark.parametrize("transfer_dtype", [np.int16, np.int8, np.float16])
+def test_rotation_null_transfer_dtype_matches_jax(transfer_dtype,
+                                                  overlap_upload):
+    """``transfer_dtype`` on a float cohort, per-subject and whole-cohort
+    uploads: the host conversion is the JAX package's
+    (``native.quantize_*_per_channel``, bit for bit in
+    ``tests/test_torch_transfer.py``), so the port equals itself run on
+    the converted cohort widened to float32, and the JAX package within
+    the gram engine's tolerance (the observed maps and, at one seed, the
+    maxima), with ``p_fwe`` and the upload bytes equal."""
+    eeg, emg = _cohort(J=2, n_sec=12.0)
+    kw = dict(KW, n_surrogates=200, overlap_upload=overlap_upload)
+    ref = JN.cohort_msc_rotation_null(eeg, emg, transfer_dtype=transfer_dtype,
+                                      compute_dtype=jnp.float32, **kw)
+    got = TN.cohort_msc_rotation_null(eeg, emg, transfer_dtype=transfer_dtype,
+                                      device="cpu", **kw)
+    conv = TN.upload_quantizer(transfer_dtype, eeg, emg)
+    wide = TN.cohort_msc_rotation_null(
+        np.stack([conv(x).float().numpy() for x in eeg]),
+        np.stack([conv(x).float().numpy() for x in emg]), device="cpu",
+        **kw)
+    np.testing.assert_array_equal(got["observed"], wide["observed"])
+    np.testing.assert_array_equal(got["max_stat"], wide["max_stat"])
+    sc = float(np.abs(ref["observed"]).max())
+    for key in ("observed", "max_stat"):
+        np.testing.assert_allclose(got[key], ref[key], rtol=2e-4,
+                                   atol=2e-5 * sc, err_msg=key)
+    assert got["p_fwe"] == ref["p_fwe"] < 0.01
+    t_got, t_ref = got["metadata"]["timings"], ref["metadata"]["timings"]
+    assert t_got["upload_bytes"] == t_ref["upload_bytes"] == \
+        (eeg.size + emg.size) * np.dtype(transfer_dtype).itemsize
+    assert "quantize_sec" in t_got and "quantize_sec" in t_ref
+
+
+@pytest.mark.parametrize("rotation_mode", ["shared", "per_window"])
+@pytest.mark.parametrize("compute_dtype", [torch.bfloat16, torch.float16])
+def test_rotation_null_compute_dtype_matches_jax(compute_dtype,
+                                                 rotation_mode):
+    """The contraction on 16-bit operands with float32 sums, end to end:
+    the observed map is the float32 pass's (the gram tolerance), the
+    maxima at one seed within the gram tolerance, ``p_fwe`` equal, and
+    the metadata names the type as the JAX package does."""
+    eeg, emg = _cohort(J=2, n_sec=12.0)
+    kw = dict(KW, n_surrogates=200, rotation_mode=rotation_mode)
+    ref = JN.cohort_msc_rotation_null(
+        eeg, emg, compute_dtype=JAX_DTYPES[compute_dtype], **kw)
+    got = TN.cohort_msc_rotation_null(eeg, emg, compute_dtype=compute_dtype,
+                                      device="cpu", **kw)
+    sc = float(np.abs(ref["observed"]).max())
+    for key in ("observed", "max_stat"):
+        np.testing.assert_allclose(got[key], ref[key], rtol=2e-4,
+                                   atol=2e-5 * sc, err_msg=key)
+    assert got["p_fwe"] == ref["p_fwe"]
+    assert got["metadata"]["compute_dtype"] == \
+        ref["metadata"]["compute_dtype"] == str(compute_dtype)[6:]
+
+
+def _count_ties(coef, base, obs, phi, cdtype, J):
+    """Cells where some surrogate's statistic lies within 1e-5 of the
+    observed one: there the rounding of the sums may move a count."""
+    G = cuda_null.null_features(TN.phase_features(torch.from_numpy(phi)),
+                                cdtype)
+    rows = G[..., :phi.shape[1]].transpose(1, 2).float()
+    coefT = cuda_null.prepare_null_coeffs(t32(coef), cdtype).float()
+    stat = t32(base)[:, None, :] + torch.bmm(rows, coefT) / J
+    return ((stat - t32(obs)[:, None, :]).abs() <= 1e-5).any(dim=1).numpy()
+
+
+@pytest.mark.parametrize("engine", ["core", "pallas"])
+@pytest.mark.parametrize("compute_dtype", [torch.bfloat16, torch.float16])
+def test_null_chunk_reduced_precision_matches_jax(compute_dtype, engine):
+    """One chunk on 16-bit operands: the plain core against the XLA core,
+    and through the B2 wrapper against the Pallas kernel in interpret
+    mode, on the same φ: maxima within rtol 1e-5, counts equal but in
+    cells whose statistic lies within 1e-5 of the observed one."""
+    J, nF, N, K, S, seed = 3, 4, 512, 3, 20, 5
+    P = K * (K - 1)
+    jd = JAX_DTYPES[compute_dtype]
+    coef, base, obs = null_toy(J, nF, N, K, seed)
+    key = jax.random.PRNGKey(seed)
+    phi = jax_phases(seed, J, S, K, nF)
+    if engine == "core":
+        ms_ref, c_ref = JN._null_chunk_core(
+            key, jnp.asarray(coef), jnp.asarray(base), jnp.asarray(obs),
+            jnp.zeros((nF, N), jnp.int32), S, K, jd)
+        ms, c = TN._null_chunk_core(torch.from_numpy(phi), t32(coef),
+                                    t32(base), t32(obs),
+                                    torch.zeros((nF, N), dtype=torch.int32),
+                                    compute_dtype)
+    else:
+        ms_ref, c_ref = null_chunk_pallas(
+            key, prepare_null_coeffs(jnp.asarray(coef), jd),
+            jnp.asarray(base), jnp.asarray(obs), S, K, J, P, jd,
+            interpret=True)
+        state = TN.null_state(t32(base), t32(coef), t32(obs), compute_dtype)
+        assert state.coefT.dtype == compute_dtype
+        ms, c = TN.null_chunk(torch.from_numpy(phi), state)
+    np.testing.assert_allclose(ms.numpy(), np.asarray(ms_ref), rtol=1e-5)
+    ties = _count_ties(coef, base, obs, phi, compute_dtype, J)
+    differ = c.numpy() != np.asarray(c_ref)
+    assert not (differ & ~ties).any()
+
+
+@pytest.mark.parametrize("compute_dtype", [torch.bfloat16, torch.float16])
+def test_null_chunk_pw_reduced_precision_matches_jax(compute_dtype):
+    """The per-window chunk on 16-bit operands (``_null_chunk_jit_pw``):
+    the same keys give the same φ per window, maxima within rtol 1e-5 and
+    counts equal."""
+    Wp, J, nF, N, K, S = 3, 2, 4, 256, 3, 16
+    rng = np.random.default_rng(6)
+    P = K * (K - 1)
+    coefw = (0.05 * rng.standard_normal((Wp, J, nF, N, P))).astype(
+        np.float32)
+    base = (0.1 + 0.2 * rng.random((nF, N))).astype(np.float32)
+    obs = (base + 0.05 * rng.standard_normal((nF, N))).astype(np.float32)
+    key = jax.random.PRNGKey(3)
+    ms_ref, c_ref = JN._null_chunk_jit_pw(
+        key, jnp.asarray(coefw), jnp.asarray(base), jnp.asarray(obs),
+        jnp.zeros((nF, N), jnp.int32), S, K, JAX_DTYPES[compute_dtype])
+    state = TN.null_state(t32(base), t32(coefw), t32(obs), compute_dtype)
+    ms, c = TN.null_chunk_pw(
+        TN.window_phases(np.asarray(key), Wp, J, S, K, nF, "cpu"), state)
+    np.testing.assert_allclose(ms.numpy(), np.asarray(ms_ref), rtol=1e-5)
+    np.testing.assert_array_equal(c.numpy(), np.asarray(c_ref))

@@ -182,9 +182,37 @@ def test_ica_from_jax_checks_shapes():
                              ref.mixing_.T, 3, 5)
 
 
-def test_reference_layout_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A11"):
-        TI.InfomaxICA(3, batch_layout="reference", device="cpu")
+@pytest.mark.parametrize("seed,block", [(42, 80), (7, 33)])
+def test_reference_layout_three_epochs_match_jax(seed, block):
+    """``batch_layout='reference'``: each epoch's blocks are
+    ``x_white[permutation(sub, n_blocks·block)]``, the permutation bit for
+    bit JAX's (``tests/test_torch_prng.py``), so W agrees after three
+    epochs at ``test_three_epochs_match_jax``'s tolerances."""
+    x = _mixed_sources()
+    xw = _whitened(x, JI.InfomaxICA(3, max_iter=1).fit(x))
+    wj, nj = JI._extended_infomax(jax.random.PRNGKey(seed), jnp.asarray(xw),
+                                  3, block, 3, np.float32(0.003),
+                                  batch_layout="reference")
+    wt, nt = TI._extended_infomax(prng.prng_key(seed), torch.from_numpy(xw),
+                                  3, block, 3, np.float32(0.003),
+                                  batch_layout="reference")
+    wj = np.asarray(wj)
+    assert int(nj) == nt == 3
+    np.testing.assert_allclose(wt.numpy(), wj, rtol=1e-4,
+                               atol=1e-6 * np.abs(wj).max())
+
+
+def test_reference_layout_fit_matches_jax():
+    """A converged fit in the reference layout: the sources of the port
+    and the JAX package match up to sign and order."""
+    x = _mixed_sources()
+    ref = JI.InfomaxICA(3, max_iter=400, batch_layout="reference").fit(x)
+    got = TI.InfomaxICA(3, max_iter=400, batch_layout="reference",
+                        device="cpu").fit(x)
+    assert got.n_iter_ < 400 and ref.n_iter_ < 400
+    best, match = _matched_corr(got.get_sources(x), ref.get_sources(x))
+    assert best.min() >= CORR_MIN, best
+    assert sorted(match) == list(range(3))
     with pytest.raises(ValueError):
         TI.InfomaxICA(3, batch_layout="shuffled", device="cpu")
 

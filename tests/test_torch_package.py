@@ -130,6 +130,8 @@ def test_package_imports_neither_jax_nor_mba_tpu():
             "mba_tpu_torch.utils.multiprocessing_tools",
             "mba_tpu_torch.workflows.experiment_workflow",
             "mba_tpu_torch.workflows.serial_testing_workflow",
+            "mba_tpu_torch.utils.transfer", "mba_tpu_torch.utils.profiling",
+            "mba_tpu_torch.native.quantize",
             } <= set(names)
     # torch_entry.py, the port's entry script, beside the package
     code = (f"import importlib, sys\n"
@@ -142,6 +144,50 @@ def test_package_imports_neither_jax_nor_mba_tpu():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_package_and_its_exports_load_no_pandas():
+    """``import mba_tpu_torch`` and its re-exporting sub-packages stay
+    cheap: no pandas, matplotlib, sklearn or JAX, and no kernel build."""
+    code = ("import sys\n"
+            "import mba_tpu_torch, mba_tpu_torch.ops, mba_tpu_torch.models\n"
+            "import mba_tpu_torch.workflows, mba_tpu_torch.utils.transfer\n"
+            "import mba_tpu_torch.utils.profiling\n"
+            "from mba_tpu_torch import _build\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            "             ('pandas', 'matplotlib', 'sklearn', 'jax',\n"
+            "              'mba_tpu'))\n"
+            "assert not bad, bad\n"
+            "assert _build.load_library.cache_info().currsize == 0\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("sub", ["ops", "models", "workflows"])
+def test_package_exports_match_jax(sub):
+    """Every name that ``mba_tpu.<sub>`` re-exports, the port's
+    ``mba_tpu_torch.<sub>`` re-exports too, under the same name and of the
+    same kind (function or class); ``channel_layout`` is a module of both
+    top-level packages."""
+    import inspect
+    jax_mod = importlib.import_module(f"mba_tpu.{sub}")
+    port_mod = importlib.import_module(f"mba_tpu_torch.{sub}")
+    names = [n for n, v in vars(jax_mod).items()
+             if not n.startswith("_") and not inspect.ismodule(v)]
+    assert names
+    for name in names:
+        ref, got = getattr(jax_mod, name), getattr(port_mod, name)
+        assert inspect.isclass(got) == inspect.isclass(ref), name
+        assert callable(got), name
+    import mba_tpu
+    assert inspect.ismodule(mba_tpu.channel_layout)
+    assert mba_tpu_torch.channel_layout.EEG_CHANNELS == \
+        mba_tpu.channel_layout.EEG_CHANNELS
+    from mba_tpu_torch.ops import coherence
+    assert coherence.fisher_atanh is mba_tpu_torch.ops.fisher_atanh
+    assert coherence.inverse_fisher_atanh is \
+        mba_tpu_torch.ops.inverse_fisher_atanh
 
 
 def test_plots_load_matplotlib_when_they_draw(tmp_path):
@@ -350,6 +396,33 @@ def test_msc_kernel_matches_plain_on_card(cuda, ws, nw, nE, nM):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nw,nE,nM", [(5, 8, 6), (5, 33, 7), (8.5, 8, 6),
+                                      (9, 8, 6), (11, 33, 7)])
+def test_msc_kernel_at_many_tapers_on_card(cuda, nw, nE, nM):
+    """K = 9 and 16 (compile-time instances), 17 and 21 (the runtime-K
+    instance) in both EMG modes against the plain version, at the
+    tolerances of ``test_msc_kernel_matches_plain_on_card``; the EMG-max
+    value is the full grid's max."""
+    e, m = _spectra(4, 3, 256, nE, nM, device=cuda, nw=nw)
+    assert e.shape[1] == 2 * nw - 1
+    before = cuda_msc.msc_jackknife.launches
+    kf = _np(cuda_msc.msc_jackknife(e, m, 2.1, emg_max=False))
+    km = _np(cuda_msc.msc_jackknife(e, m, 2.1, emg_max=True))
+    torch.cuda.synchronize()
+    assert cuda_msc.msc_jackknife.launches == before + 2
+    pf = _np(cuda_msc.msc_jackknife_plain(e, m, 2.1, emg_max=False))
+    tol = cuda_msc.ci_tolerance(cuda_msc.loo_coherence_max(e, m).cpu()
+                                .numpy())
+    np.testing.assert_allclose(kf["coherence"], pf["coherence"], atol=5e-5)
+    for key in KEYS[1:]:
+        assert (np.abs(kf[key] - pf[key]) <= tol).all(), key
+    np.testing.assert_array_equal(km["coherence"], kf["coherence"].max(-1))
+    idx, at_pick = _pick_and_take(kf, km)
+    for key in KEYS:
+        np.testing.assert_array_equal(km[key], at_pick[key], err_msg=key)
+
+
+@pytest.mark.cuda
 def test_msc_kernel_carries_nan_of_a_coherent_pair(cuda):
     """EMG channel 1 = EEG channel 2: every leave-one-out ratio is
     exactly 1, the float32 Fisher clip lets it through to +inf and the z
@@ -420,6 +493,42 @@ def _check_null_kernel(cuda, J, K, S, N, nF):
                                rtol=1e-5, atol=1e-5)
     diff = (cnt - cnt_ref).abs().cpu().numpy()
     assert diff.max() <= 1 and (diff > 0).mean() <= 1e-4
+    assert int(cnt.max()) <= S
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("J,K,S,N", [(2, 3, 13, 100), (3, 5, 500, 512),
+                                     (2, 5, 129, 4096 + 8)])
+def test_null_kernel_reduced_precision_on_card(cuda, dtype, J, K, S, N):
+    """B2's 16-bit instance against its plain version (``bmm`` of the
+    rounded operands, widened): G's surrogate axis padded to 8 (S = 13,
+    129: pad rows never count), N = 100 (element loads) and multiples of
+    8 (16-byte copies).  Maxima within rtol 1e-5; counts equal but in
+    cells whose statistic lies within 1e-5 of the observed one."""
+    nF = 4
+    coef, base, obs = null_toy(J, nF, N, K, seed=S)
+    state = TN.null_state(t32(base).to(cuda), t32(coef).to(cuda),
+                          t32(obs).to(cuda), dtype)
+    phi = TN.draw_phases(prng.prng_key(S), J, S, K, nF, cuda)
+    G = cuda_null.null_features(TN.phase_features(phi), dtype)
+    assert G.dtype == dtype and G.shape[2] % 8 == 0
+    before = cuda_null.null_tile.launches
+    ms, cnt = cuda_null.null_tile(G, state.coefT, state.base_flat,
+                                  state.observed_flat, J, S)
+    torch.cuda.synchronize()
+    assert cuda_null.null_tile.launches == before + 1
+    ms_ref, cnt_ref = cuda_null.null_tile_plain(
+        G, state.coefT, state.base_flat, state.observed_flat, J, S)
+    assert ms.shape == (S,)
+    np.testing.assert_allclose(ms.cpu().numpy(), ms_ref.cpu().numpy(),
+                               rtol=1e-5)
+    rows = G[..., :S].transpose(1, 2).float()
+    stat = state.base_flat[:, None] + torch.bmm(
+        rows, state.coefT.float()) / J
+    ties = ((stat - state.observed_flat[:, None]).abs() <= 1e-5).any(1)
+    differ = (cnt != cnt_ref)
+    assert not bool((differ & ~ties).any())
     assert int(cnt.max()) <= S
 
 
@@ -602,6 +711,37 @@ def test_coeff_kernel_matches_plain_on_card(cuda, K, wc, nF, nE, nM):
     wsum = float(w.sum())
     for a, b in zip(got, ref):
         assert tuple(a.shape) == tuple(b.shape)
+        assert bool(torch.isfinite(a).all())
+        np.testing.assert_allclose(a.cpu().numpy() / wsum,
+                                   b.cpu().numpy() / wsum,
+                                   rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,wc,nF,nE,nM,accumulate", [
+    (9, 32, 5, 64, 64, False),    # nw = 5: the wide compile-time tile
+    (9, 7, 3, 11, 37, True),      # ... the narrow one, accumulating
+    (12, 9, 3, 8, 40, False),
+    (16, 33, 2, 6, 64, True),     # the largest compile-time instance
+    (17, 10, 3, 5, 37, False),    # the runtime-K instance
+    (21, 9, 2, 3, 70, True),
+])
+def test_coeff_kernel_at_many_tapers_on_card(cuda, K, wc, nF, nE, nM,
+                                             accumulate):
+    """K above 8 against the plain version at the tolerance of
+    ``test_coeff_kernel_matches_plain_on_card``, plain and ``out=``."""
+    e, m, w = _coeff_spectra(K + wc, wc, K, nF, nE, nM, cuda)
+    ref = cuda_coeffs.coeff_pairs_plain(e, m, w)
+    out = None
+    if accumulate:
+        out = tuple(torch.full_like(x, 0.25) for x in ref)
+        ref = tuple(x + 0.25 for x in ref)
+    before = cuda_coeffs.coeff_pairs.launches
+    got = cuda_coeffs.coeff_pairs(e, m, w, out=out)
+    torch.cuda.synchronize()
+    assert cuda_coeffs.coeff_pairs.launches == before + 1
+    wsum = float(w.sum())
+    for a, b in zip(got, ref):
         assert bool(torch.isfinite(a).all())
         np.testing.assert_allclose(a.cpu().numpy() / wsum,
                                    b.cpu().numpy() / wsum,
@@ -841,6 +981,29 @@ def test_phase_null_on_card_matches_cpu(cuda):
 
 
 # ---- the ICA's CUDA-graph epoch on the card -------------------------------
+
+@pytest.mark.cuda
+def test_ica_reference_layout_on_card_matches_cpu(cuda):
+    """``batch_layout='reference'``: the epoch's permutation drawn on the
+    card (threefry kernel, stable sort) equals the CPU's bit for bit, and
+    three replayed epochs give the CPU's W within rtol 1e-4."""
+    key = prng.split(prng.prng_key(42))[1]
+    n = 2 ** 17 + 3
+    assert torch.equal(cuda_prng.permutation(key, n, cuda).cpu(),
+                       prng.permutation(key, n))
+    rng = np.random.default_rng(1)
+    xw = rng.laplace(size=(256 * 30, 3)).astype(np.float32)
+    w_card, n_card = TI._extended_infomax(
+        prng.prng_key(7), torch.from_numpy(xw).to(cuda), 3, 80, 3,
+        np.float32(0.003), batch_layout="reference")
+    w_cpu, n_cpu = TI._extended_infomax(
+        prng.prng_key(7), torch.from_numpy(xw), 3, 80, 3,
+        np.float32(0.003), batch_layout="reference")
+    assert n_card == n_cpu == 3
+    np.testing.assert_allclose(w_card.cpu().numpy(), w_cpu.numpy(),
+                               rtol=1e-4,
+                               atol=1e-6 * float(w_cpu.abs().max()))
+
 
 @pytest.mark.cuda
 def test_ica_graph_epochs_on_card_match_cpu(cuda):

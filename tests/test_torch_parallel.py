@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
+import jax.numpy as jnp
 
 from mba_tpu.ops import cohort_null as JN
 from mba_tpu.ops import surrogate as JS
@@ -251,6 +252,31 @@ def test_rotation_null_matches_jax_mesh(two, engine):
         assert got["metadata"][key] == ref["metadata"][key], key
     assert got["metadata"]["timings"]["coeffs_shard_devices"] == 2
     _assert_ranks_equal(two, f"rotation_{engine}")
+
+
+def test_rotation_null_int16_upload_and_bf16_match_jax_mesh(two):
+    """``transfer_dtype=np.int16`` on the float cohort (each rank
+    quantizes only its own subjects) and ``compute_dtype`` bf16 under the
+    mesh, against the JAX mesh with the same options: the observed map
+    within the gram tolerance, maxima within 1e-5, counts and ``p_fwe``
+    equal."""
+    eeg, emg = M.cohort_signals(3, seconds=8.0, seed=6)
+    ref = JN.cohort_msc_rotation_null(eeg, emg, FS, mesh=jax_mesh(2),
+                                      transfer_dtype=np.int16,
+                                      compute_dtype=jnp.bfloat16,
+                                      **M.ROT_KW)
+    got = two[0]["rotation_int16_bf16"]
+    sc = float(np.abs(ref["observed"]).max())
+    np.testing.assert_allclose(got["observed"], ref["observed"], rtol=2e-4,
+                               atol=2e-5 * sc)
+    np.testing.assert_allclose(got["max_stat"], ref["max_stat"], rtol=0,
+                               atol=NULL_ATOL)
+    np.testing.assert_array_equal(got["p_uncorrected"],
+                                  ref["p_uncorrected"])
+    assert got["p_fwe"] == ref["p_fwe"]
+    assert got["metadata"]["compute_dtype"] == "bfloat16"
+    assert "quantize_sec" in got["metadata"]["timings"]
+    _assert_ranks_equal(two, "rotation_int16_bf16")
 
 
 def test_rotation_null_refuses_per_window_and_a_foreign_device(two):

@@ -98,6 +98,35 @@ def test_randint_equals_jax(bounds, shape):
     np.testing.assert_array_equal(got, ref)
 
 
+@pytest.mark.parametrize("seed,n", [(0, 1), (1, 10), (2, 1000),
+                                    (3, 1627), (42, 2 ** 17 + 3)])
+def test_permutation_equals_jax(seed, n):
+    """``jax.random.permutation(key, n)`` bit for bit, through the plain
+    draw and through the kernel wrapper's (its plain version here); n
+    spans one round (n ≤ 1625) and two."""
+    key = jax.random.PRNGKey(seed)
+    ref = np.asarray(jax.random.permutation(key, n))
+    got = prng.permutation(np.asarray(key), n)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(
+        cuda_prng.permutation(np.asarray(key), n, "cpu").numpy(), ref)
+
+
+def test_permutation_keeps_the_order_of_tied_keys():
+    """At n = 2¹⁷ + 3 the 32-bit sort keys of some round hold a tie (~2
+    expected per round), so the stable sort's tie order is exercised by
+    ``test_permutation_equals_jax``."""
+    n = 2 ** 17 + 3
+    key = np.asarray(jax.random.PRNGKey(42))
+    ties = 0
+    for _ in range(2):                       # the rounds at this n
+        key, sub = prng.split(key)
+        bits = prng.random_bits(sub, (n,))
+        ties += n - len(torch.unique(bits))
+    assert ties >= 1
+
+
 def test_randint_refuses_bounds_outside_int32():
     with pytest.raises(ValueError):
         prng.randint(prng.prng_key(0), (), 0, 2 ** 31)

@@ -19,8 +19,6 @@ import jax.numpy as jnp
 from mba_tpu.ops import cohort_null as CN
 from mba_tpu.ops.dpss import filtered_tapers
 
-from mba_tpu_torch.ops import coherence as TC
-from mba_tpu_torch.ops import cohort_null as TN
 from mba_tpu_torch.ops import cuda_coeffs
 from mba_tpu_torch.ops.rotation_coeffs import rotation_coeffs_subject
 
@@ -100,12 +98,11 @@ def test_pallas_engine_matches_jax_pallas_interpret(case):
 
 
 def test_pallas_engine_takes_any_taper_count_on_cpu():
-    """nw = 5 gives K = 9 tapers, more than kernel B3 takes (K_MAX = 8):
-    CPU tensors run the plain pair pass at any K, as the JAX package's
-    ``'pallas'`` engine becomes its scan engine off a TPU
-    (``mba_tpu/ops/cohort_null.py:1168-1173``)."""
+    """nw = 5 gives K = 9 tapers: CPU tensors run the plain pair pass at
+    any K, as the JAX package's ``'pallas'`` engine becomes its scan
+    engine off a TPU (``mba_tpu/ops/cohort_null.py:1168-1173``)."""
     K = filtered_tapers(256, 5, 0.9).shape[0]
-    assert K == 9 > cuda_coeffs.K_MAX
+    assert K == 9
     eeg, emg, kw = _case_inputs("weights_and_padding")
     b0, c0, b1, c1 = _run_both(eeg, emg, "pallas", nw=5, jax_engine="xla",
                                **kw)
@@ -114,32 +111,20 @@ def test_pallas_engine_takes_any_taper_count_on_cpu():
     np.testing.assert_allclose(c1, c0, rtol=RTOL, atol=ATOL)
 
 
-def _fake_card(monkeypatch):
-    """A CPU-only process that believes it has a card, and fails loudly
-    if anything is uploaded."""
-    def no_upload(*args, **kwargs):
-        raise AssertionError("uploaded before the entry-point check")
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(TN, "to_device", no_upload)
-    monkeypatch.setattr(TC, "to_device", no_upload)
-
-
-@pytest.mark.parametrize("entry", ["rotation_null_pallas", "multitaper_msc"])
-def test_more_than_8_tapers_on_the_card_raise_at_the_entry_point(
-        monkeypatch, entry):
-    """K = 9 on a CUDA device: kernels B3 and B1 take K <= 8, so the entry
-    point raises ``NotImplementedError`` naming ROADMAP A.11 before any
-    upload."""
-    _fake_card(monkeypatch)
-    eeg, emg = _problem(7)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        if entry == "multitaper_msc":
-            TC.multitaper_msc(eeg, emg, 256.0, nw=5, window_length_sec=1.0,
-                              device="cuda")
-        else:
-            TN.cohort_msc_rotation_null(
-                eeg[None], emg[None], 256.0, nw=5, window_length_sec=1.0,
-                coeff_engine="pallas", n_surrogates=8, device="cuda")
+@pytest.mark.parametrize("nw,case", [(8, "weights_and_padding"),
+                                     (8, "full_band")])
+def test_pallas_engine_plain_pass_at_nw8_matches_jax(nw, case):
+    """nw = 8, K = 15 tapers (105 pairs; on the card one of kernel B3's
+    compile-time instances above K = 8): on the CPU the plain pair pass,
+    against the JAX scan engine."""
+    K = filtered_tapers(256, nw, 0.9).shape[0]
+    assert K == 2 * nw - 1
+    eeg, emg, kw = _case_inputs(case)
+    b0, c0, b1, c1 = _run_both(eeg, emg, "pallas", nw=nw, jax_engine="xla",
+                               **kw)
+    assert c1.shape == c0.shape and c1.shape[-1] == K * (K - 1)
+    np.testing.assert_allclose(b1, b0, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(c1, c0, rtol=RTOL, atol=ATOL)
 
 
 def test_pallas_engine_observed_statistic_matches_jax():

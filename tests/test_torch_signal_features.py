@@ -325,13 +325,34 @@ def test_task_wise_cmc_from_the_log_frame(enriched, tmp_path):
                                      expected_n_channels=5)
 
 
+def test_task_wise_cmc_int16_download_matches_jax():
+    """``transfer_dtype=np.int16`` forwards to ``multitaper_msc``'s
+    quantized download: within the float32 tolerances plus one int16
+    step (a lane's span ≤ 1), with the JAX package's download bytes."""
+    eeg, emg, fs = _cmc_signals()
+    kw = dict(eeg_channel_subset=['C3', 'C1', 'Cz'], window_size_sec=1.0,
+              transfer_dtype=np.int16)
+    t_ref, t_got = {}, {}
+    ref = JF.compute_task_wise_aggregated_cmc(eeg, emg, fs, "flexor",
+                                              timings_out=t_ref, **kw)
+    got = TF.compute_task_wise_aggregated_cmc(eeg, emg, fs, "flexor",
+                                              timings_out=t_got,
+                                              device="cpu", **kw)
+    e = eeg[:, [tlayout.EEG_CHANNEL_IND_DICT[c]
+                for c in kw["eeg_channel_subset"]]]
+    step = 1 / 65535
+    np.testing.assert_allclose(got[0], ref[0], rtol=0, atol=MSC_ATOL + step)
+    tol = _ci_tol(e, emg, fs, 1.0, emg_max=True) + step
+    for g, r in zip(got[1:3], ref[1:3]):
+        assert g.shape == r.shape and g.dtype == np.float32
+        assert (np.abs(g - r) <= tol).all()
+    for g, r in zip(got[3:], ref[3:]):
+        np.testing.assert_array_equal(g, r)
+    assert t_got["download_bytes"] == t_ref["download_bytes"]
+
+
 def test_task_wise_cmc_refusals():
     eeg, emg, fs = _cmc_signals(seconds=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TF.compute_task_wise_aggregated_cmc(eeg[:, :2], emg, fs, "flexor",
-                                            window_size_sec=1.0,
-                                            transfer_dtype=np.int16,
-                                            device="cpu")
     with pytest.raises(ValueError, match="same number of samples"):
         TF.compute_task_wise_aggregated_cmc(eeg[:-5], emg, fs, "flexor",
                                             device="cpu")
