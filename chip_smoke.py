@@ -14,7 +14,10 @@ result):
 3. each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, with CUDA-event times of both (B3 also
    in its accumulate form over two chunks); meanwhile ``nvcc -Xptxas -v``
-   compiles B1 and B3 for the registers and spills of each instance;
+   compiles B1, B3 and B2's tensor-core source for the registers and
+   spills of each instance (a ``wgmma`` serialization warning fails);
+   after the timed phases, ``cuobjdump -sass`` of the library must show
+   ``HGMMA`` in both 16-bit instances of B2;
 4. the port on a small input on the card against the same call on the
    CPU, where every kernel wrapper runs its plain version;
 5. the main paths at ``bench.py``'s configuration, each with every
@@ -35,8 +38,9 @@ result):
    half an int8 step of the float32 leg's per-lane spans plus 1e-4, the
    peak in the band); (b) (5b)'s null with bench.py:287-290's int16
    upload (observed map within 1e-5 of (b)'s, p_fwe < 0.01) and (c) with
-   ``compute_dtype=torch.bfloat16`` (p_fwe < 0.01), and B2's bf16
-   instance against its plain version on one chunk; (d) B1 and B3 at
+   ``compute_dtype=torch.bfloat16`` and ``torch.float16`` (p_fwe <
+   0.01), and B2's bf16 and f16 instances (the tensor cores) against
+   their plain version on one chunk each; (d) B1 and B3 at
    nw = 5 (K = 9) and nw = 9 (K = 17, the runtime-K instances) against
    their plain versions, timed at the main path's shapes; (e) a small
    ``batch_layout='reference'`` ICA, card against CPU; (f) one B1
@@ -139,8 +143,10 @@ result):
    ``cuda_msc.ci_tolerance``), the rotation null's maxima within the
    gram tolerance, the phase null's within 1e-4/5e-5, ``p_fwe`` equal.
    A rank that fails, or a join past its limit, fails the phase;
-13. one JSON line describing the kernels (B2's bf16 instance its own
-   entry, B1 and B3 with their K = 9 and K = 17 checks and the registers
+13. one JSON line describing the kernels (B2's bf16 and f16 instances
+   their own entries, bound by the tensor cores' 989 TFLOP/s and timed
+   beside ``torch.bmm`` in their type, B1 and B3 with their K = 9 and
+   K = 17 checks and the registers
    and spills of every instance): per kernel its launches on its
    main path (and on every path, ``launches_by_path``), its error
    against the plain version, CUDA-event times of the kernel and the
@@ -166,6 +172,7 @@ import json
 import math
 import os
 import re
+import shutil
 import signal
 import subprocess
 import sys
@@ -707,6 +714,12 @@ def _msc_instance(entry: str):
     return f"K={m.group(1) or 'any'} {('full', 'emg_max')[int(m.group(2))]}"
 
 
+def _tc_instance(entry: str):
+    """B2's tensor-core instance label of a kernel entry name, or None."""
+    m = re.search(r"null_tile_tc_kernelILb([01])E", entry)
+    return ("bf16", "f16")[int(m.group(1))] if m else None
+
+
 # source: (entry name → instance label, every label expected)
 PTXAS_SOURCES = {
     "coeff_pairs": (_coeff_instance,
@@ -715,13 +728,14 @@ PTXAS_SOURCES = {
     "msc_jackknife": (_msc_instance,
                       [f"K={k} {w}" for k in [*range(2, 17), "any"]
                        for w in ("full", "emg_max")]),
+    "null_tile_tc": (_tc_instance, ["bf16", "f16"]),
 }
 
 
 def ptxas_start() -> dict:
-    """Start ``nvcc -Xptxas -v`` of B3's and B1's sources with the build's
-    flags, one process a source, to run while the card works; collect
-    with :func:`ptxas_report`."""
+    """Start ``nvcc -Xptxas -v`` of B3's, B1's and B2's tensor-core
+    sources with the build's flags, one process a source, to run while
+    the card works; collect with :func:`ptxas_report`."""
     procs = {}
     for stem in PTXAS_SOURCES:
         obj = _build.BUILD_DIR / f"ptxas_report.{stem}.{os.getpid()}.o"
@@ -744,13 +758,15 @@ def _stop(procs) -> None:
 
 
 def ptxas_report(procs: dict) -> dict:
-    """Registers and spills of each instance of B3 and B1 from the
-    processes of :func:`ptxas_start`: {"coeff_pairs": {"K=5 wide":
-    {"registers": .., "spill_stores": .., "spill_loads": ..}, ...},
-    "msc_jackknife": {"K=5 emg_max": ...}} (bytes for spills).  B3's
+    """Registers and spills of each instance of B3, B1 and B2's tensor-
+    core source from the processes of :func:`ptxas_start`:
+    {"coeff_pairs": {"K=5 wide": {"registers": .., "spill_stores": ..,
+    "spill_loads": ..}, ...}, "msc_jackknife": {"K=5 emg_max": ...},
+    "null_tile_tc": {"bf16": ..., "f16": ...}} (bytes for spills).  B3's
     "wide" is the instance whose lanes span 32 EMG channels (M = 64 on
     the main path), "narrow" the one for fewer; B1's "emg_max" and
-    "full" its two modes; "K=any" the runtime-K instances."""
+    "full" its two modes; "K=any" the runtime-K instances.  A warning
+    that ptxas serialized a source's ``wgmma``s fails."""
     report = {}
     for stem, (obj, proc) in procs.items():
         try:
@@ -760,6 +776,10 @@ def ptxas_report(procs: dict) -> dict:
         _require(proc.returncode == 0, f"nvcc -Xptxas -v {stem} failed:\n"
                  f"{text}")
         label_of, expected = PTXAS_SOURCES[stem]
+        serialized = [line for line in text.splitlines()
+                      if "wgmma" in line and "serializ" in line]
+        _require(not serialized, f"ptxas serialized wgmma in {stem}: "
+                 f"{serialized}")
         out, k = {}, None
         for line in text.splitlines():
             entry = re.search(r"Compiling entry function '(\S+)'", line)
@@ -781,6 +801,29 @@ def ptxas_report(procs: dict) -> dict:
                  f"ptxas report of {stem} lacks an instance: {sorted(out)}")
         report[stem] = out
     return report
+
+
+def sass_hgmma(lib_path: Path) -> dict:
+    """``HGMMA`` instructions (the warpgroup products on the tensor cores)
+    in each 16-bit instance of B2, from ``cuobjdump -sass`` of the built
+    library: {"bf16": n, "f16": n}; none in either fails.  Run after the
+    timed phases: the dump keeps host cores busy for a while."""
+    exe = shutil.which("cuobjdump") or str(
+        Path(_build.nvcc_path()).with_name("cuobjdump"))
+    proc = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=600)
+    _require(proc.returncode == 0, f"cuobjdump -sass failed:\n"
+             f"{(proc.stdout + proc.stderr)[-2000:]}")
+    counts, label = {"bf16": 0, "f16": 0}, None
+    for line in proc.stdout.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            label = _tc_instance(fn.group(1))
+        elif label and re.search(r"\bHGMMA\b", line):
+            counts[label] += 1
+    _require(min(counts.values()) > 0, f"B2's 16-bit instances lack HGMMA "
+             f"in the SASS: {counts}")
+    return counts
 
 
 def _coeff_excess(got, ref, wsum, what) -> tuple[dict, dict]:
@@ -2915,41 +2958,47 @@ def run_cmc_transfers(eeg, emg, device) -> dict:
             "cells_over_half_step": moved}
 
 
-def check_null_kernel_bf16(device, reps=10) -> dict:
-    """B2's bf16 instance against its plain version (``bmm`` of the
-    rounded operands, widened to float32) on one 500-surrogate chunk at
-    the main path's shapes: maxima within rtol NULL_TOL, counts equal
-    but in cells whose statistic lies within NULL_TOL of the observed
-    one.  Its bound: the bf16 tensor cores' rate against the bytes at
-    3.35 TB/s; library_ms is ``torch.bmm`` of the bf16 operands (the
-    product alone, bf16 out)."""
-    dtype = torch.bfloat16
+def check_null_kernel_16bit(device, dtype, reps=10) -> dict:
+    """B2's 16-bit instance (``dtype`` bfloat16 or float16: the tensor
+    cores) against its plain version (``bmm`` of the rounded operands,
+    widened to float32) on one 500-surrogate chunk at the main path's
+    shapes: maxima within rtol NULL_TOL, counts equal but in cells whose
+    statistic lies within NULL_TOL of the observed one (the float32 sums
+    run in another order), none above S.  Its bound: the tensor cores'
+    989 TFLOP/s against the bytes at 3.35 TB/s; library_ms is
+    ``torch.bmm`` of the 16-bit operands (the product alone, 16-bit
+    out)."""
+    name = str(dtype).removeprefix("torch.").replace("float16", "f16") \
+        .replace("bfloat16", "bf16")
     state, key, K = null_check_state(device, dtype=dtype, seed=1)
     J, S = state.n_subjects, SURROGATE_CHUNK
-    nF, JP, N = state.coefT.shape
+    nF, JP, N = *state.coefT.shape[:2], state.base_flat.shape[1]
     key, sub = prng.split(key)
     G = cuda_null.null_features(TN.phase_features(
         TN.draw_phases(sub, J, S, K, nF, device)), dtype)
     args = (G, state.coefT, state.base_flat, state.observed_flat, J, S)
     ms, cnt = cuda_null.null_tile(*args)
     ms_p, cnt_p = cuda_null.null_tile_plain(*args)
-    _require(bool(torch.isfinite(ms).all()), "B2 bf16: non-finite max_stat")
+    _require(bool(torch.isfinite(ms).all()),
+             f"B2 {name}: non-finite max_stat")
     err = float((ms - ms_p).abs().max())
     _require(bool(((ms - ms_p).abs() <= NULL_TOL * ms_p.abs()).all()),
-             f"B2 bf16 max_stat disagrees: {err}")
+             f"B2 {name} max_stat disagrees: {err}")
     rows = G[..., :S].transpose(1, 2).float()
-    stat = state.base_flat[:, None] + torch.bmm(rows, state.coefT.float()) / J
+    stat = state.base_flat[:, None] + torch.bmm(
+        rows, state.coefT[..., :N].float()) / J
     ties = ((stat - state.observed_flat[:, None]).abs() <= NULL_TOL).any(1)
     del stat, rows
     differ = cnt != cnt_p
     n_off = int((differ & ~ties).sum())
-    log(json.dumps({"check": "null_tile bf16", "shape": [nF, S, JP, N],
+    log(json.dumps({"check": f"null_tile {name}", "shape": [nF, S, JP, N],
                     "max_stat_abs_err": err,
                     "count_cells_differ": float(differ.float().mean()),
                     "count_cells_differ_off_ties": n_off,
                     "tie_cells": float(ties.float().mean())}))
-    _require(n_off == 0, f"B2 bf16 counts differ in {n_off} cells whose "
+    _require(n_off == 0, f"B2 {name} counts differ in {n_off} cells whose "
              "statistic is not within 1e-5 of the observed one")
+    _require(int(cnt.max()) <= S, f"B2 {name} counted more than S")
     out = {"max_abs_err": err,
            "ms": cuda_ms(lambda: cuda_null.null_tile(*args), reps),
            "plain_ms": cuda_ms(lambda: cuda_null.null_tile_plain(*args),
@@ -2960,7 +3009,7 @@ def check_null_kernel_bf16(device, reps=10) -> dict:
     a = G[..., :S].transpose(1, 2).contiguous()
     out["library_ms"] = cuda_ms(lambda: torch.bmm(a, state.coefT), reps)
     out["shape"] = [nF, S, JP, N]
-    out["peak"] = "bf16 tensor cores, 989 TFLOP/s dense"
+    out["peak"] = f"{name} tensor cores, 989 TFLOP/s dense"
     del a
     torch.cuda.empty_cache()
     return out
@@ -3089,7 +3138,7 @@ def check_device_trace(eeg, emg, device) -> dict:
 
 def run_options(eeg, emg, cohort, observed_gram, device, card) -> dict:
     """The options phase: bench.py's own transfer settings, the null in
-    bf16, B1 and B3 at more tapers and the reference-layout ICA, each
+    bf16 and f16, B1 and B3 at more tapers and the reference-layout ICA, each
     section timed by ``utils.profiling.StageTimer``; every path's launch
     counts set to 0 just before it and read just after."""
     timer = StageTimer("options")
@@ -3113,17 +3162,19 @@ def run_options(eeg, emg, cohort, observed_gram, device, card) -> dict:
              f"the float32 leg's by {d}")
     _require(out["null_int16"]["launches"]["null_tile"] > 0,
              "the int16-upload null did not launch B2")
-    reset_launches()
-    with timer.stage("null_bf16"):
-        out["null_bf16"], _ = run_null(*cohort, device,
-                                       compute_dtype=torch.bfloat16)
-    out["null_bf16"]["launches"] = launches()
-    _require(out["null_bf16"]["launches"]["null_tile"] > 0
-             and out["null_bf16"]["launches"]["threefry"] > 0,
-             "the bf16 null did not launch B2 and threefry")
-    torch.cuda.empty_cache()
-    with timer.stage("b2_bf16_check"):
-        out["b2_bf16"] = check_null_kernel_bf16(device)
+    for name, dtype in (("bf16", torch.bfloat16), ("f16", torch.float16)):
+        reset_launches()
+        with timer.stage(f"null_{name}"):
+            out[f"null_{name}"], _ = run_null(*cohort, device,
+                                              compute_dtype=dtype)
+        out[f"null_{name}"]["launches"] = launches()
+        _require(out[f"null_{name}"]["launches"]["null_tile"] > 0
+                 and out[f"null_{name}"]["launches"]["threefry"] > 0,
+                 f"the {name} null did not launch B2 and threefry")
+        torch.cuda.empty_cache()
+    with timer.stage("b2_16bit_check"):
+        out["b2_bf16"] = check_null_kernel_16bit(device, torch.bfloat16)
+        out["b2_f16"] = check_null_kernel_16bit(device, torch.float16)
     with timer.stage("b1_b3_many_tapers"):
         out["b1"] = {f"nw={nw}": check_msc_many_tapers(eeg, emg, device, nw)
                      for nw in OPT_NWS}
@@ -3371,6 +3422,7 @@ def main() -> int:
                     "two_gloo_ranks_one_card": mesh2}))
 
     report = ptxas_report(ptxas)
+    hgmma = sass_hgmma(lib_path)
     paths = {"cmc": n_cmc, "null_gram": n_gram, "null_pallas": n_pallas,
              "null_per_window": n_pw, "fft_null": n_fft,
              "feature_extraction": n_feat, "preprocessing": n_pre,
@@ -3394,13 +3446,17 @@ def main() -> int:
          "replaces": "mba_tpu/ops/pallas_null.py:37",
          "launches": n_gram["null_tile"],
          "launches_by_path": by_path("null_tile"), **null},
-        {"name": "null_tile_bf16", "route": "cuda",
-         "source": "mba_tpu_torch/csrc/null_tile.cu",
-         "replaces": "mba_tpu/ops/pallas_null.py:37",
-         "note": "B2's bf16 instance (compute_dtype=torch.bfloat16): "
-                 "16-bit operands widened to float32 on the CUDA cores",
-         "launches": options["null_bf16"]["launches"]["null_tile"],
-         **options["b2_bf16"]},
+        *({"name": f"null_tile_{name}", "route": "cuda",
+           "source": "mba_tpu_torch/csrc/null_tile_tc.cu",
+           "replaces": "mba_tpu/ops/pallas_null.py:37",
+           "note": f"B2's {name} instance (compute_dtype={dtype}): wgmma "
+                   "on the tensor cores, float32 accumulators, the "
+                   "count/max epilogue on the accumulator layout",
+           "launches": options[f"null_{name}"]["launches"]["null_tile"],
+           **options[f"b2_{name}"], "ptxas": report["null_tile_tc"][name],
+           "sass_hgmma": hgmma[name]}
+          for name, dtype in (("bf16", "torch.bfloat16"),
+                              ("f16", "torch.float16"))),
         {"name": "coeff_pairs", "route": "cuda",
          "source": "mba_tpu_torch/csrc/coeff_pairs.cu",
          "replaces": "mba_tpu/ops/pallas_coeffs.py:83",

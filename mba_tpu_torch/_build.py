@@ -8,9 +8,9 @@ sources and flags, so a changed source rebuilds on first use and an
 unchanged one loads at once.  Nothing is built when the package is
 imported: the first kernel launch calls :func:`load_library`.
 
-Flags: ``sm_90a`` (Hopper, with ``wgmma``/``setmaxnreg`` available to
-later kernels) and no ``--use_fast_math``: the MSC kernel's Fisher
-transform needs IEEE ``logf``/``tanhf``/division so that its edge cases
+Flags: ``sm_90a`` (Hopper: ``wgmma`` in the 16-bit null tile) and no
+``--use_fast_math``: the MSC kernel's Fisher transform needs IEEE
+``logf``/``tanhf``/division so that its edge cases
 (``c == 1`` → ``+inf`` → NaN CIs) match the JAX package, and the
 coefficient kernel's IEEE ``sqrtf``/division and kept denormals (no
 flush to zero) clamp a tiny ``pe·pm`` as the CPU does.
@@ -42,9 +42,13 @@ _SIGNATURES = {
     "mba_msc_jackknife": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                           _P),
     # G, coefT, base, obs, partial_max, counts, max_out,
-    # nF, S, ldg, JP, N, inv_J, kind, stream
+    # nF, S, ldg, JP, N, inv_J, stream
     "mba_null_tile": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                      _I, _P),
+                      _P),
+    # G, coefT, base, obs, partial_max, counts, max_out,
+    # nF, S, ldg, JP, N, ldc, inv_J, f16, stream
+    "mba_null_tile_tc": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _F, _I, _P),
     # eeg, emg, weights, diag, pr, pi, wc, K, F, E, M, accumulate, stream
     "mba_coeff_pairs": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _P),

@@ -1,7 +1,9 @@
-// Kernel B2: rotation-null surrogate tile for Hopper (sm_90a).
+// Kernel B2: rotation-null surrogate tile for Hopper (sm_90a), float32.
 //
 // Replaces the Pallas TPU kernel mba_tpu/ops/pallas_null.py:_null_tile_kernel
-// (:37-76).  Per frequency f it evaluates the surrogate statistic
+// (:37-76) at compute_dtype float32 (the 16-bit instances run on the
+// tensor cores: csrc/null_tile_tc.cu).  Per frequency f it evaluates the
+// surrogate statistic
 //     stat[s, n] = base[f, n] + (Gᵀ[f] · coefT[f])[s, n] / J
 // with G (nF, JP, S) the phase features of S surrogates, stored k-major,
 // and coefT (nF, JP, N) the rotation coefficients (J·P flattened), and
@@ -41,26 +43,12 @@
 //   added to the cell's count by one integer atomic a block (exact in any
 //   order); each row's max over the block's real cells, NaN-propagating,
 //   written as one partial per (frequency, cell tile, surrogate), which
-//   the second kernel reduces per surrogate: no float atomics, so the max
-//   is deterministic.
+//   the second kernel reduces per surrogate (mba_null_reduce_max, which
+//   the tensor-core instances share): no float atomics, so the max is
+//   deterministic.
 // * 64 KB of ring a block and __launch_bounds__(256, 2) (≤ 128
 //   registers): two blocks, 16 warps, an SM.
-//
-// Reduced precision (the caller's compute_dtype, pallas_null.py:137-186):
-// instances for bf16 and f16 operands, G and coefT stored, staged and
-// read in 16 bits (rounded once by the wrapper), each staged element
-// widened to float32 in the inner loop and multiplied and summed there
-// as above: a product of two 16-bit values is exact in float32, so this
-// is the float32 kernel on the rounded operands, and its plain version
-// is bmm of the rounded operands widened to float32.  The ring then
-// holds 32 KB a block.  16-byte copies take rows of 8 elements: the
-// wrapper pads G's surrogate axis to a multiple of 8 (ld, with the real
-// S given apart; the pad rows are zero and never counted) and N must be
-// a multiple of 8; otherwise the slices are loaded element by element,
-// synchronously.  These instances run on the CUDA cores like the float32
-// one: the bf16 tensor cores (mma.sync / wgmma) are not used yet.
 
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -77,38 +65,13 @@ constexpr int RED_X = 32;       // surrogates per reduction block
 constexpr int RED_Y = 8;        // partial rows per reduction step
 
 constexpr int SLICE = BK * BM;  // elements of one operand slice (BM == BN)
+constexpr size_t SMEM_BYTES = (size_t)STAGES * 2 * SLICE * sizeof(float)
+    + 2 * BN * sizeof(float) + BN * sizeof(int);      // base, obs, counts
 
-// Operand types: KIND 0 float32, 1 bf16, 2 f16; the 16-bit ones are
-// stored as their bit patterns and widened to float32 when read
-enum { F32 = 0, BF16 = 1, F16 = 2 };
-template <int KIND> struct Elem { using T = unsigned short; };
-template <> struct Elem<F32> { using T = float; };
-
-template <int KIND>
-constexpr size_t smem_bytes() {
-  return (size_t)STAGES * 2 * SLICE * sizeof(typename Elem<KIND>::T)
-      + 2 * BN * sizeof(float) + BN * sizeof(int);    // base, obs, counts
-}
-
-template <int KIND>
-__device__ __forceinline__ float widen(unsigned short h) {
-  if constexpr (KIND == BF16) return __uint_as_float((unsigned)h << 16);
-  else return __half2float(__ushort_as_half(h));
-}
-
-// four consecutive operand values as float32 (16-byte / 8-byte aligned)
-template <int KIND>
+// four consecutive floats (16-byte aligned)
 __device__ __forceinline__ void load4(const float* p, float* v) {
   const float4 x = *reinterpret_cast<const float4*>(p);
   v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-}
-template <int KIND>
-__device__ __forceinline__ void load4(const unsigned short* p, float* v) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  v[0] = widen<KIND>(u.x & 0xffffu);
-  v[1] = widen<KIND>(u.x >> 16);
-  v[2] = widen<KIND>(u.y & 0xffffu);
-  v[3] = widen<KIND>(u.y >> 16);
 }
 
 __device__ __forceinline__ float nan_max(float a, float b) {
@@ -141,21 +104,17 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Copy rows k0..k0+BK of a k-major (JP, ld) operand, columns
 // c0..c0+128, into a [BK][128] slice; zero past JP and ld.  VEC: 16-byte
-// cp.async copies (ld a multiple of 16 bytes' elements); else float32
-// 4-byte cp.async copies, or 16-bit elements loaded synchronously.
-template <int KIND, bool VEC>
-__device__ __forceinline__ void load_slice(typename Elem<KIND>::T* dst,
-                                           const typename Elem<KIND>::T* src,
+// cp.async copies (ld a multiple of 4); else 4-byte copies.
+template <bool VEC>
+__device__ __forceinline__ void load_slice(float* dst, const float* src,
                                            int JP, int ld, int k0, int c0,
                                            int t) {
-  using T = typename Elem<KIND>::T;
   if constexpr (VEC) {
-    constexpr int EPC = 16 / sizeof(T);               // elements a copy
 #pragma unroll
-    for (int r = 0; r < SLICE / EPC / THREADS; ++r) {
+    for (int r = 0; r < SLICE / 4 / THREADS; ++r) {
       const int q = t + r * THREADS;                  // 16-byte chunk
-      const int k = q / (BM / EPC), c = (q % (BM / EPC)) * EPC;
-      const bool ok = k0 + k < JP && c0 + c < ld;     // ld % EPC == 0
+      const int k = q / (BM / 4), c = (q % (BM / 4)) * 4;
+      const bool ok = k0 + k < JP && c0 + c < ld;     // ld % 4 == 0
       cp_async16(dst + k * BM + c,
                  ok ? src + (size_t)(k0 + k) * ld + c0 + c : src,
                  ok ? 16 : 0);
@@ -166,30 +125,24 @@ __device__ __forceinline__ void load_slice(typename Elem<KIND>::T* dst,
       const int q = t + r * THREADS;
       const int k = q / BM, c = q % BM;
       const bool ok = k0 + k < JP && c0 + c < ld;
-      if constexpr (KIND == F32)
-        cp_async4(reinterpret_cast<float*>(dst) + k * BM + c,
-                  reinterpret_cast<const float*>(
-                      ok ? src + (size_t)(k0 + k) * ld + c0 + c : src),
-                  ok ? 4 : 0);
-      else
-        dst[k * BM + c] = ok ? src[(size_t)(k0 + k) * ld + c0 + c] : T(0);
+      cp_async4(dst + k * BM + c,
+                ok ? src + (size_t)(k0 + k) * ld + c0 + c : src, ok ? 4 : 0);
     }
   }
 }
 
-template <int KIND, bool VEC>
+template <bool VEC>
 __global__ void __launch_bounds__(THREADS, 2)
-null_tile_kernel(const typename Elem<KIND>::T* __restrict__ G,
-                 const typename Elem<KIND>::T* __restrict__ coefT,
+null_tile_kernel(const float* __restrict__ G,
+                 const float* __restrict__ coefT,
                  const float* __restrict__ base,
                  const float* __restrict__ obs,
                  float* __restrict__ partial_max, int* __restrict__ counts,
                  int S, int ldg, int JP, int N, float inv_J) {
-  using T = typename Elem<KIND>::T;
   extern __shared__ float4 smem4[];
-  T* As = reinterpret_cast<T*>(smem4);                // [STAGES][BK][BM]
-  T* Bs = As + STAGES * SLICE;                        // [STAGES][BK][BN]
-  float* base_s = reinterpret_cast<float*>(Bs + STAGES * SLICE);  // [BN]
+  float* As = reinterpret_cast<float*>(smem4);        // [STAGES][BK][BM]
+  float* Bs = As + STAGES * SLICE;                    // [STAGES][BK][BN]
+  float* base_s = Bs + STAGES * SLICE;                // [BN]
   float* obs_s = base_s + BN;                         // [BN]
   int* cnt_s = reinterpret_cast<int*>(obs_s + BN);    // [BN]
 
@@ -199,8 +152,8 @@ null_tile_kernel(const typename Elem<KIND>::T* __restrict__ G,
   const int s0 = blockIdx.y * BM;
   const int f = blockIdx.z;
   const int n0 = tn * BN;
-  const T* Gf = G + (size_t)f * JP * ldg;
-  const T* Cf = coefT + (size_t)f * JP * N;
+  const float* Gf = G + (size_t)f * JP * ldg;
+  const float* Cf = coefT + (size_t)f * JP * N;
 
   if (t < BN) {
     const int n = n0 + t;
@@ -212,9 +165,8 @@ null_tile_kernel(const typename Elem<KIND>::T* __restrict__ G,
   const int steps = (JP + BK - 1) / BK;              // J·P slices
   auto stage_step = [&](int step) {
     const int stage = step % STAGES;
-    load_slice<KIND, VEC>(As + stage * SLICE, Gf, JP, ldg, step * BK, s0,
-                          t);
-    load_slice<KIND, VEC>(Bs + stage * SLICE, Cf, JP, N, step * BK, n0, t);
+    load_slice<VEC>(As + stage * SLICE, Gf, JP, ldg, step * BK, s0, t);
+    load_slice<VEC>(Bs + stage * SLICE, Cf, JP, N, step * BK, n0, t);
   };
 #pragma unroll
   for (int p = 0; p < STAGES - 1; ++p) {
@@ -235,15 +187,15 @@ null_tile_kernel(const typename Elem<KIND>::T* __restrict__ G,
     if (step + STAGES - 1 < steps) stage_step(step + STAGES - 1);
     cp_async_commit();
 
-    const T* a = As + (step % STAGES) * SLICE;
-    const T* b = Bs + (step % STAGES) * SLICE;
+    const float* a = As + (step % STAGES) * SLICE;
+    const float* b = Bs + (step % STAGES) * SLICE;
 #pragma unroll
     for (int k = 0; k < BK; ++k) {
       float av[8], bv[8];
-      load4<KIND>(a + k * BM + ty * 4, av);
-      load4<KIND>(a + k * BM + 64 + ty * 4, av + 4);
-      load4<KIND>(b + k * BN + tx * 4, bv);
-      load4<KIND>(b + k * BN + 64 + tx * 4, bv + 4);
+      load4(a + k * BM + ty * 4, av);
+      load4(a + k * BM + 64 + ty * 4, av + 4);
+      load4(b + k * BN + tx * 4, bv);
+      load4(b + k * BN + 64 + tx * 4, bv + 4);
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -310,68 +262,57 @@ __global__ void reduce_max_kernel(const float* __restrict__ partial,
   }
 }
 
-template <int KIND, bool VEC>
-cudaError_t launch_tile(const void* G, const void* coefT, const float* base,
+template <bool VEC>
+cudaError_t launch_tile(const float* G, const float* coefT, const float* base,
                         const float* obs, float* partial_max, int* counts,
                         int nF, int S, int ldg, int JP, int N, float inv_J,
                         cudaStream_t s) {
-  using T = typename Elem<KIND>::T;
-  auto kernel = null_tile_kernel<KIND, VEC>;
-  constexpr size_t smem = smem_bytes<KIND>();
+  auto kernel = null_tile_kernel<VEC>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
   if (err != cudaSuccess) return err;
   // the blocks of a cell tile add their counts
   err = cudaMemsetAsync(counts, 0, (size_t)nF * N * sizeof(int), s);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3((N + BN - 1) / BN, (S + BM - 1) / BM, nF), THREADS, smem,
-           s>>>(static_cast<const T*>(G), static_cast<const T*>(coefT), base,
-                obs, partial_max, counts, S, ldg, JP, N, inv_J);
+  kernel<<<dim3((N + BN - 1) / BN, (S + BM - 1) / BM, nF), THREADS,
+           SMEM_BYTES, s>>>(G, coefT, base, obs, partial_max, counts, S, ldg,
+                            JP, N, inv_J);
   return cudaGetLastError();
-}
-
-template <int KIND>
-cudaError_t launch_kind(const void* G, const void* coefT, const float* base,
-                        const float* obs, float* partial_max, int* counts,
-                        int nF, int S, int ldg, int JP, int N, float inv_J,
-                        cudaStream_t s) {
-  // 16-byte copies: rows of a whole number of 16 bytes, 16-byte aligned
-  constexpr int EPC = 16 / (int)sizeof(typename Elem<KIND>::T);
-  const bool vec = ldg % EPC == 0 && N % EPC == 0
-      && reinterpret_cast<uintptr_t>(G) % 16 == 0
-      && reinterpret_cast<uintptr_t>(coefT) % 16 == 0;
-  return (vec ? launch_tile<KIND, true> : launch_tile<KIND, false>)(
-      G, coefT, base, obs, partial_max, counts, nF, S, ldg, JP, N, inv_J, s);
 }
 
 }  // namespace
 
-// kind: 0 float32, 1 bf16, 2 f16 operands G (nF, JP, ldg) and coefT
-// (nF, JP, N); S <= ldg real surrogates
+// max over the nT partial rows (nT, S) of each surrogate → max_out (S,)
+extern "C" int mba_null_reduce_max(const void* partial, void* max_out,
+                                   int nT, int S, void* stream) {
+  reduce_max_kernel<<<(S + RED_X - 1) / RED_X, dim3(RED_X, RED_Y), 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(partial), static_cast<float*>(max_out), nT,
+      S);
+  return (int)cudaGetLastError();
+}
+
+// float32 G (nF, JP, ldg) and coefT (nF, JP, N); S <= ldg real surrogates
 extern "C" int mba_null_tile(const void* G, const void* coefT,
                              const void* base, const void* obs,
                              void* partial_max, void* counts, void* max_out,
                              int nF, int S, int ldg, int JP, int N,
-                             float inv_J, int kind, void* stream) {
+                             float inv_J, void* stream) {
   if (nF <= 0 || nF > 65535 || S <= 0 || S > ldg ||
-      (S + BM - 1) / BM > 65535 || JP <= 0 || N <= 0 || kind < 0 ||
-      kind > 2)
+      (S + BM - 1) / BM > 65535 || JP <= 0 || N <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* b = static_cast<const float*>(base);
-  const float* o = static_cast<const float*>(obs);
-  float* pm = static_cast<float*>(partial_max);
-  int* cn = static_cast<int*>(counts);
-  cudaError_t err =
-      kind == F32 ? launch_kind<F32>(G, coefT, b, o, pm, cn, nF, S, ldg, JP,
-                                     N, inv_J, s)
-      : kind == BF16 ? launch_kind<BF16>(G, coefT, b, o, pm, cn, nF, S, ldg,
-                                         JP, N, inv_J, s)
-                     : launch_kind<F16>(G, coefT, b, o, pm, cn, nF, S, ldg,
-                                        JP, N, inv_J, s);
+  const float* g = static_cast<const float*>(G);
+  const float* c = static_cast<const float*>(coefT);
+  // 16-byte copies: rows of a whole number of 16 bytes, 16-byte aligned
+  const bool vec = ldg % 4 == 0 && N % 4 == 0
+      && reinterpret_cast<uintptr_t>(G) % 16 == 0
+      && reinterpret_cast<uintptr_t>(coefT) % 16 == 0;
+  cudaError_t err = (vec ? launch_tile<true> : launch_tile<false>)(
+      g, c, static_cast<const float*>(base), static_cast<const float*>(obs),
+      static_cast<float*>(partial_max), static_cast<int*>(counts), nF, S, ldg,
+      JP, N, inv_J, s);
   if (err != cudaSuccess) return (int)err;
-  const int nTN = (N + BN - 1) / BN;
-  reduce_max_kernel<<<(S + RED_X - 1) / RED_X, dim3(RED_X, RED_Y), 0, s>>>(
-      pm, static_cast<float*>(max_out), nF * nTN, S);
-  return (int)cudaGetLastError();
+  return mba_null_reduce_max(partial_max, max_out, nF * ((N + BN - 1) / BN),
+                             S, stream);
 }

@@ -163,10 +163,11 @@ def cohort_epilogue_pw(bases, coefws):
 class NullState:
     """What the surrogate loop needs, resident on the device.
 
-    base_flat / observed_flat: (F, N) float32; coefT: (F, J·P, N)
-    (``prepare_null_coeffs`` layout), or (Wp, F, J·P, N) in the
+    base_flat / observed_flat: (F, N) float32; coefT: (F, J·P, ldc)
+    (``prepare_null_coeffs`` layout), or (Wp, F, J·P, ldc) in the
     per-window mode, in the contraction's operand type (float32, or
-    bfloat16/float16 rounded once); n_subjects J; n_feats P = K(K−1).
+    bfloat16/float16 rounded once; ldc is N, rounded up to a multiple of 8
+    in 16 bits); n_subjects J; n_feats P = K(K−1).
     """
     base_flat: torch.Tensor
     observed_flat: torch.Tensor
@@ -228,10 +229,11 @@ def null_chunk_pw(phases, state: NullState):
     (max_stat (S,), counts increment (F, N)).
     """
     dtype = state.coefT.dtype
+    N = state.base_flat.shape[1]
     acc = None
     for w, phi in enumerate(phases):
         rows = feature_rows(phase_features(phi))
-        coef_w = state.coefT[w]
+        coef_w = state.coefT[w][..., :N]
         if dtype != torch.float32:
             rows, coef_w = rows.to(dtype).float(), coef_w.float()
         inc = torch.bmm(rows, coef_w)

@@ -1,4 +1,5 @@
-"""Kernel B2: the rotation-null surrogate tile (``csrc/null_tile.cu``).
+"""Kernel B2: the rotation-null surrogate tile (``csrc/null_tile.cu``,
+float32; ``csrc/null_tile_tc.cu``, bfloat16 and float16).
 
 Replaces the Pallas kernel ``mba_tpu/ops/pallas_null.py:_null_tile_kernel``
 (:37-76) and its callers ``_pallas_call_null``/``null_chunk_pallas_body``.
@@ -15,11 +16,12 @@ kernel launches.
 Reduced precision (the null's ``compute_dtype``, ``pallas_null.py:137-
 186``): G and coefT may be bfloat16 or float16, each rounded once from
 float32 (:func:`null_features`, :func:`prepare_null_coeffs`), with the
-products and sums in float32; the kernel's instance for them widens each
-staged element, and the plain version is ``bmm`` of the rounded
-operands widened to float32.  The reduced G's surrogate axis is padded
-to a multiple of 8 (16-byte rows), so the real surrogate count S is
-passed apart.
+products and sums in float32; those run on the tensor cores (``wgmma``
+with float32 accumulators), and the plain version is ``bmm`` of the
+rounded operands widened to float32.  The tensor-core kernel's copies
+(TMA) need 16-byte rows, so a 16-bit operand's contiguous axis is padded
+with zeros to a multiple of 8: G's surrogate axis (the real surrogate
+count S passed apart) and coefT's cell axis (the real N is base's).
 """
 from __future__ import annotations
 
@@ -27,39 +29,58 @@ import torch
 
 from mba_tpu_torch import _build
 
-CELL_TILE = 128      # cells per block: BN in csrc/null_tile.cu
-# operand types of the kernel's instances: the C entry point's ``kind``
-KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-REDUCED_ROWS = 8     # a 16-bit G's surrogate axis, padded: 16-byte rows
+# cells per partial max row: BN in csrc/null_tile.cu, csrc/null_tile_tc.cu
+CELL_TILE = {torch.float32: 128, torch.bfloat16: 256, torch.float16: 256}
+REDUCED = (torch.bfloat16, torch.float16)   # the tensor-core instances
+ROW_ALIGN = 8        # a 16-bit operand's contiguous axis: 16-byte rows
+
+
+def padded_width(n: int, dtype: torch.dtype) -> int:
+    """Length of an operand's contiguous axis holding ``n`` values:
+    ``n`` in float32, ``n`` rounded up to ``ROW_ALIGN`` in 16 bits."""
+    if dtype == torch.float32:
+        return n
+    return -(-n // ROW_ALIGN) * ROW_ALIGN
 
 
 def prepare_null_coeffs(coef_all: torch.Tensor,
                         dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """One-time relayout for the kernel (``pallas_null.py:137-150``).
 
-    coef_all: (..., J, nF, N, P) float32 → coefT (..., nF, J·P, N) in
+    coef_all: (..., J, nF, N, P) float32 → coefT (..., nF, J·P, ldc) in
     ``dtype`` (rounded once), contiguous (a leading window axis of the
-    per-window mode is kept).  Unlike the TPU layout, J·P is not padded:
-    the kernel masks its ragged last slice.
+    per-window mode is kept).  ldc = :func:`padded_width`: N in float32;
+    in 16 bits N rounded up to a multiple of 8 with zero columns, whose
+    cells the kernel and the plain version never read (the real N is
+    base's).  Unlike the TPU layout, J·P is not padded: the kernels mask
+    its ragged last slice.
     """
     *lead, J, nF, N, P = coef_all.shape
-    return (coef_all.to(torch.float32).movedim(-1, -2).movedim(-4, -3)
-            .reshape(*lead, nF, J * P, N).to(dtype).contiguous())
+    coefT = (coef_all.to(torch.float32).movedim(-1, -2).movedim(-4, -3)
+             .reshape(*lead, nF, J * P, N))
+    ldc = padded_width(N, dtype)
+    if ldc == N:
+        return coefT.to(dtype).contiguous()
+    out = torch.zeros((*lead, nF, J * P, ldc), dtype=dtype,
+                      device=coefT.device)
+    out[..., :N] = coefT
+    return out
 
 
 def null_features(G_jsfp: torch.Tensor,
                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Phase features (J, S, nF, P) → the kernel's k-major (nF, J·P, S)
+    """Phase features (J, S, nF, P) → the kernels' k-major (nF, J·P, S)
     layout, flattened over (j, p) in the order of
     :func:`prepare_null_coeffs`: a J·P slice of it and of coefT is copied
-    to shared memory as it lies, with no transpose.  A 16-bit ``dtype``
-    rounds the features once and pads S with zeros to a multiple of
-    ``REDUCED_ROWS``, as ``pallas_null.py:170-175`` pads S_pad."""
+    to shared memory as it lies, with no transpose (the tensor cores take
+    both as M- and N-major operands).  A 16-bit ``dtype`` rounds the
+    features once and pads S with zeros to a multiple of ``ROW_ALIGN``,
+    as ``pallas_null.py:170-175`` pads S_pad."""
     J, S, nF, P = G_jsfp.shape
     G = G_jsfp.permute(2, 0, 3, 1).reshape(nF, J * P, S)
-    if dtype == torch.float32:
-        return G.contiguous()
-    S_pad = -(-S // REDUCED_ROWS) * REDUCED_ROWS
+    S_pad = padded_width(S, dtype)
+    if S_pad == S:
+        return G.to(dtype).contiguous()
     out = torch.zeros((nF, J * P, S_pad), dtype=dtype, device=G.device)
     out[..., :S] = G
     return out
@@ -83,17 +104,19 @@ def null_epilogue(stat: torch.Tensor, obs: torch.Tensor):
 def null_tile_plain(G: torch.Tensor, coefT: torch.Tensor,
                     base: torch.Tensor, obs: torch.Tensor, J: int,
                     S: int | None = None):
-    """Plain PyTorch version: returns (max_stat (S,), counts (nF, N)).
-    16-bit operands are widened to float32 for the product."""
+    """Plain PyTorch version: returns (max_stat (S,), counts (nF, N)),
+    N = base's width (coefT's first N cells).  16-bit operands are widened
+    to float32 for the product."""
     S = G.shape[2] if S is None else S
+    N = base.shape[1]
     rows = G[..., :S].transpose(1, 2).to(torch.float32).contiguous()
-    stat = base[:, None, :] + torch.bmm(rows, coefT.to(torch.float32)) \
-        * (1.0 / J)
+    stat = base[:, None, :] + torch.bmm(
+        rows, coefT[..., :N].to(torch.float32)) * (1.0 / J)
     return null_epilogue(stat, obs)
 
 
 def _check(G, coefT, base, obs, S) -> None:
-    if G.dtype not in KINDS:
+    if G.dtype not in CELL_TILE:
         raise TypeError(f"G must be float32, bfloat16 or float16, got "
                         f"{G.dtype}")
     if coefT.dtype != G.dtype:
@@ -112,14 +135,20 @@ def _check(G, coefT, base, obs, S) -> None:
     nF, JP, ldg = G.shape
     if not 0 < S <= ldg:
         raise ValueError(f"S={S} must lie in 1..{ldg} (G's surrogate axis)")
-    if coefT.shape[:2] != (nF, JP):
-        raise ValueError(f"coefT {tuple(coefT.shape)} does not match G "
-                         f"{tuple(G.shape)}")
-    N = coefT.shape[2]
-    for name, x in (("base", base), ("obs", obs)):
-        if tuple(x.shape) != (nF, N):
-            raise ValueError(f"{name} must be ({nF}, {N}), got "
-                             f"{tuple(x.shape)}")
+    if G.dtype in REDUCED and ldg % ROW_ALIGN:
+        raise ValueError(f"a 16-bit G's surrogate axis ({ldg}) must be a "
+                         f"multiple of {ROW_ALIGN} (null_features pads it)")
+    if base.ndim != 2 or tuple(obs.shape) != tuple(base.shape):
+        raise ValueError(f"base {tuple(base.shape)} and obs "
+                         f"{tuple(obs.shape)} must be one (nF, N) shape")
+    N = base.shape[1]
+    want = (nF, JP, padded_width(N, G.dtype))
+    if tuple(coefT.shape) != want:
+        raise ValueError(f"coefT must be {want} for G {tuple(G.shape)} and "
+                         f"N = {N} ({G.dtype}), got {tuple(coefT.shape)}")
+    if base.shape[0] != nF:
+        raise ValueError(f"base must be ({nF}, {N}), got "
+                         f"{tuple(base.shape)}")
 
 
 def null_tile(G: torch.Tensor, coefT: torch.Tensor, base: torch.Tensor,
@@ -127,10 +156,12 @@ def null_tile(G: torch.Tensor, coefT: torch.Tensor, base: torch.Tensor,
     """Surrogate statistic tile (see module docstring).
 
     G: (nF, JP, ldg) phase features (:func:`null_features`) and coefT:
-    (nF, JP, N), both float32, bfloat16 or float16; base/obs: (nF, N)
-    float32; S: the real surrogates, the first S of G's ldg (default all).
-    Returns (max_stat (S,) float32, counts (nF, N) int32 — this chunk's
-    exceedances, for the caller to add).
+    (nF, JP, ldc) (:func:`prepare_null_coeffs`), both float32, bfloat16 or
+    float16; base/obs: (nF, N) float32, N <= ldc; S: the real surrogates,
+    the first S of G's ldg (default all).  Returns (max_stat (S,)
+    float32, counts (nF, N) int32 — this chunk's exceedances, for the
+    caller to add).  A CUDA float32 G launches the CUDA-core kernel, a
+    16-bit one the tensor-core kernel; there is no other route.
     """
     S = G.shape[2] if S is None else int(S)
     _check(G, coefT, base, obs, S)
@@ -139,8 +170,8 @@ def null_tile(G: torch.Tensor, coefT: torch.Tensor, base: torch.Tensor,
     if G.device.type != "cuda":
         raise ValueError(f"unsupported device {G.device}")
     nF, JP, ldg = G.shape
-    N = coefT.shape[2]
-    n_tiles = -(-N // CELL_TILE)
+    N = base.shape[1]
+    n_tiles = -(-N // CELL_TILE[G.dtype])
     dev = G.device
     partial = torch.empty((nF * n_tiles, S), dtype=torch.float32,
                           device=dev)
@@ -149,11 +180,19 @@ def null_tile(G: torch.Tensor, coefT: torch.Tensor, base: torch.Tensor,
     lib = _build.load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.mba_null_tile(
-            G.data_ptr(), coefT.data_ptr(), base.data_ptr(), obs.data_ptr(),
-            partial.data_ptr(), counts.data_ptr(), max_stat.data_ptr(),
-            nF, S, ldg, JP, N, 1.0 / J, KINDS[G.dtype], stream)
-    _build.check_launch(lib, code, "mba_null_tile")
+        ptrs = (G.data_ptr(), coefT.data_ptr(), base.data_ptr(),
+                obs.data_ptr(), partial.data_ptr(), counts.data_ptr(),
+                max_stat.data_ptr())
+        if G.dtype in REDUCED:
+            name = "mba_null_tile_tc"
+            code = lib.mba_null_tile_tc(
+                *ptrs, nF, S, ldg, JP, N, coefT.shape[2], 1.0 / J,
+                int(G.dtype == torch.float16), stream)
+        else:
+            name = "mba_null_tile"
+            code = lib.mba_null_tile(*ptrs, nF, S, ldg, JP, N, 1.0 / J,
+                                     stream)
+    _build.check_launch(lib, code, name)
     null_tile.launches += 1
     return max_stat, counts
 

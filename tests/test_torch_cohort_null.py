@@ -335,3 +335,96 @@ def test_null_chunk_pw_reduced_precision_matches_jax(compute_dtype):
         TN.window_phases(np.asarray(key), Wp, J, S, K, nF, "cpu"), state)
     np.testing.assert_allclose(ms.numpy(), np.asarray(ms_ref), rtol=1e-5)
     np.testing.assert_array_equal(c.numpy(), np.asarray(c_ref))
+
+
+@pytest.mark.parametrize("N", [100, 512])
+@pytest.mark.parametrize("compute_dtype", [torch.bfloat16, torch.float16])
+def test_prepare_null_coeffs_pads_16bit_cells(compute_dtype, N):
+    """The 16-bit coefT's cell axis, padded with zeros to a multiple of 8
+    (the tensor-core kernel's 16-byte TMA rows): its first N cells are
+    the JAX package's relayout rounded to the same type (which pads J·P
+    instead), in the shared and the per-window layout; float32 stays
+    unpadded."""
+    J, nF, K = 3, 4, 3
+    JP, ldc = J * K * (K - 1), -(-N // 8) * 8
+    coef, _, _ = null_toy(J, nF, N, K, seed=7)
+    ref = np.asarray(prepare_null_coeffs(
+        jnp.asarray(coef), JAX_DTYPES[compute_dtype]).astype(jnp.float32))
+    got = cuda_null.prepare_null_coeffs(t32(coef), compute_dtype)
+    assert tuple(got.shape) == (nF, JP, ldc) and got.is_contiguous()
+    assert got.dtype == compute_dtype
+    np.testing.assert_array_equal(got[..., :N].float().numpy(), ref[:, :JP])
+    assert not bool(got[..., N:].any())
+    pw = cuda_null.prepare_null_coeffs(t32(np.stack([coef, 2 * coef])),
+                                       compute_dtype)
+    assert tuple(pw.shape) == (2, nF, JP, ldc) and pw.is_contiguous()
+    assert torch.equal(pw[0], got) and torch.equal(
+        pw[1], cuda_null.prepare_null_coeffs(t32(2 * coef), compute_dtype))
+    assert tuple(cuda_null.prepare_null_coeffs(t32(coef)).shape) == \
+        (nF, JP, N)
+
+
+@pytest.mark.parametrize("engine", ["core", "pallas"])
+@pytest.mark.parametrize("compute_dtype", [torch.bfloat16, torch.float16])
+def test_null_chunk_16bit_padded_cells_match_jax(compute_dtype, engine):
+    """One 16-bit chunk at N = 100 (coefT padded to 104 cells, the pad
+    never read) and S = 13 (G padded to 16 rows): the plain core against
+    the XLA core, and the B2 wrapper against the Pallas kernel in
+    interpret mode, on the same φ; maxima within rtol 1e-5, counts equal
+    but in cells whose statistic lies within 1e-5 of the observed one."""
+    J, nF, N, K, S, seed = 3, 4, 100, 3, 13, 8
+    P = K * (K - 1)
+    jd = JAX_DTYPES[compute_dtype]
+    coef, base, obs = null_toy(J, nF, N, K, seed)
+    key = jax.random.PRNGKey(seed)
+    phi = jax_phases(seed, J, S, K, nF)
+    if engine == "core":
+        ms_ref, c_ref = JN._null_chunk_core(
+            key, jnp.asarray(coef), jnp.asarray(base), jnp.asarray(obs),
+            jnp.zeros((nF, N), jnp.int32), S, K, jd)
+        ms, c = TN._null_chunk_core(torch.from_numpy(phi), t32(coef),
+                                    t32(base), t32(obs),
+                                    torch.zeros((nF, N), dtype=torch.int32),
+                                    compute_dtype)
+    else:
+        ms_ref, c_ref = null_chunk_pallas(
+            key, prepare_null_coeffs(jnp.asarray(coef), jd),
+            jnp.asarray(base), jnp.asarray(obs), S, K, J, P, jd,
+            interpret=True)
+        state = TN.null_state(t32(base), t32(coef), t32(obs), compute_dtype)
+        assert tuple(state.coefT.shape) == (nF, J * P, 104)
+        ms, c = TN.null_chunk(torch.from_numpy(phi), state)
+    assert tuple(c.shape) == (nF, N) and tuple(ms.shape) == (S,)
+    np.testing.assert_allclose(ms.numpy(), np.asarray(ms_ref), rtol=1e-5)
+    G = cuda_null.null_features(TN.phase_features(torch.from_numpy(phi)),
+                                compute_dtype)
+    rows = G[..., :S].transpose(1, 2).float()
+    coefT = cuda_null.prepare_null_coeffs(t32(coef), compute_dtype)
+    stat = t32(base)[:, None, :] + torch.bmm(rows, coefT[..., :N].float()) / J
+    ties = ((stat - t32(obs)[:, None, :]).abs() <= 1e-5).any(dim=1).numpy()
+    differ = c.numpy() != np.asarray(c_ref)
+    assert not (differ & ~ties).any()
+
+
+@pytest.mark.parametrize("compute_dtype", [torch.bfloat16, torch.float16])
+def test_null_chunk_pw_16bit_padded_cells_match_jax(compute_dtype):
+    """The per-window chunk on a 16-bit state whose cell axis is padded
+    (N = 100 → 104): the same φ per window as ``_null_chunk_jit_pw``,
+    maxima within rtol 1e-5 and counts equal."""
+    Wp, J, nF, N, K, S = 2, 2, 3, 100, 3, 16
+    rng = np.random.default_rng(9)
+    P = K * (K - 1)
+    coefw = (0.05 * rng.standard_normal((Wp, J, nF, N, P))).astype(
+        np.float32)
+    base = (0.1 + 0.2 * rng.random((nF, N))).astype(np.float32)
+    obs = (base + 0.05 * rng.standard_normal((nF, N))).astype(np.float32)
+    key = jax.random.PRNGKey(4)
+    ms_ref, c_ref = JN._null_chunk_jit_pw(
+        key, jnp.asarray(coefw), jnp.asarray(base), jnp.asarray(obs),
+        jnp.zeros((nF, N), jnp.int32), S, K, JAX_DTYPES[compute_dtype])
+    state = TN.null_state(t32(base), t32(coefw), t32(obs), compute_dtype)
+    assert tuple(state.coefT.shape) == (Wp, nF, J * P, 104)
+    ms, c = TN.null_chunk_pw(
+        TN.window_phases(np.asarray(key), Wp, J, S, K, nF, "cpu"), state)
+    np.testing.assert_allclose(ms.numpy(), np.asarray(ms_ref), rtol=1e-5)
+    np.testing.assert_array_equal(c.numpy(), np.asarray(c_ref))

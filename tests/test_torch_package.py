@@ -222,7 +222,8 @@ def test_build_command_targets_sm90a_without_fast_math(tmp_path):
     CPU does)."""
     srcs = _build.sources()
     assert {p.name for p in srcs} == {"msc_jackknife.cu", "null_tile.cu",
-                                      "coeff_pairs.cu", "threefry.cu"}
+                                      "null_tile_tc.cu", "coeff_pairs.cu",
+                                      "threefry.cu"}
     for src in srcs:
         cmd = _build.compile_command(tmp_path / "k.o", src, "nvcc")
         assert cmd[0] == "nvcc" and cmd[-1] == str(src)
@@ -238,6 +239,19 @@ def test_build_command_targets_sm90a_without_fast_math(tmp_path):
     assert [str(p) for p in objs] == cmd[-2:]
     assert _build.library_path().parent == _build.BUILD_DIR
     assert _build.library_path().name.startswith("libmba_kernels_")
+
+
+def test_null_tile_split_forms_match_the_source():
+    """``chip_probe.py null-tile-split`` times edited copies of B2's 16-bit
+    source: each edit's old text must occur in it exactly once, or the
+    probe would time a form other than the one it names."""
+    sys.path.insert(0, str(REPO))
+    import chip_probe
+    src = (_build.CSRC_DIR / "null_tile_tc.cu").read_text()
+    assert chip_probe.NULL_TC_FORMS["as_is"] == []
+    for form, edits in chip_probe.NULL_TC_FORMS.items():
+        for old, _ in edits:
+            assert src.count(old) == 1, (form, old)
 
 
 _FAKE_NVCC = """#!/bin/sh
@@ -496,23 +510,25 @@ def _check_null_kernel(cuda, J, K, S, N, nF):
     assert int(cnt.max()) <= S
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("J,K,S,N", [(2, 3, 13, 100), (3, 5, 500, 512),
-                                     (2, 5, 129, 4096 + 8)])
-def test_null_kernel_reduced_precision_on_card(cuda, dtype, J, K, S, N):
-    """B2's 16-bit instance against its plain version (``bmm`` of the
-    rounded operands, widened): G's surrogate axis padded to 8 (S = 13,
-    129: pad rows never count), N = 100 (element loads) and multiples of
-    8 (16-byte copies).  Maxima within rtol 1e-5; counts equal but in
-    cells whose statistic lies within 1e-5 of the observed one."""
+def _check_null_kernel_16bit(cuda, dtype, J, K, S, N, nan_cell=None):
+    """B2's 16-bit instance (the tensor cores) against its plain version
+    (``bmm`` of the rounded operands, widened), 4 frequencies.  Maxima
+    within rtol 1e-5 (NaN where the plain version's ``amax`` gives NaN);
+    counts equal but in cells whose statistic lies within 1e-5 of the
+    observed one, where the tensor cores' order of the float32 sums may
+    move it across; no count above S.  ``nan_cell`` (f, n) puts a NaN in
+    one coefficient: that cell's statistic is NaN for every surrogate, so
+    every max is NaN and the cell never counts."""
     nF = 4
-    coef, base, obs = null_toy(J, nF, N, K, seed=S)
+    coef, base, obs = null_toy(J, nF, N, K, seed=S + N)
+    if nan_cell is not None:
+        coef[J // 2, nan_cell[0], nan_cell[1], 1] = np.nan
     state = TN.null_state(t32(base).to(cuda), t32(coef).to(cuda),
                           t32(obs).to(cuda), dtype)
     phi = TN.draw_phases(prng.prng_key(S), J, S, K, nF, cuda)
     G = cuda_null.null_features(TN.phase_features(phi), dtype)
     assert G.dtype == dtype and G.shape[2] % 8 == 0
+    assert state.coefT.shape[2] % 8 == 0 and G.shape[1] == J * K * (K - 1)
     before = cuda_null.null_tile.launches
     ms, cnt = cuda_null.null_tile(G, state.coefT, state.base_flat,
                                   state.observed_flat, J, S)
@@ -520,16 +536,45 @@ def test_null_kernel_reduced_precision_on_card(cuda, dtype, J, K, S, N):
     assert cuda_null.null_tile.launches == before + 1
     ms_ref, cnt_ref = cuda_null.null_tile_plain(
         G, state.coefT, state.base_flat, state.observed_flat, J, S)
-    assert ms.shape == (S,)
+    assert ms.shape == (S,) and cnt.shape == (nF, N)
     np.testing.assert_allclose(ms.cpu().numpy(), ms_ref.cpu().numpy(),
                                rtol=1e-5)
+    assert bool(torch.isnan(ms).all()) == (nan_cell is not None)
     rows = G[..., :S].transpose(1, 2).float()
     stat = state.base_flat[:, None] + torch.bmm(
-        rows, state.coefT.float()) / J
+        rows, state.coefT[..., :N].float()) / J
     ties = ((stat - state.observed_flat[:, None]).abs() <= 1e-5).any(1)
     differ = (cnt != cnt_ref)
     assert not bool((differ & ~ties).any())
     assert int(cnt.max()) <= S
+    if nan_cell is not None:
+        assert int(cnt[nan_cell]) == int(cnt_ref[nan_cell]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("J,K,S,N", [
+    (2, 3, 13, 100), (3, 3, 64, 512), (12, 5, 65, 4096 + 8),
+    (125, 2, 129, 4096 + 7), (12, 5, 500, 4096), (3, 5, 500, 512),
+    (30, 5, 129, 100)])
+def test_null_kernel_reduced_precision_on_card(cuda, dtype, J, K, S, N):
+    """The tensor-core tile's edges: S = 13, 64, 65, 129 and 500 against
+    the 128-surrogate tile and its two 64-row warpgroups (pad rows never
+    count); J·P = 12, 18, 240, 250 and 60 against the 64-deep slice, and
+    600, past the four slices the cell tile's coefficients stay for (both
+    rings stream); N = 100 (no 16-byte rows: coefT's cell axis padded to
+    104), 512, 4096 + 8 and 4096 + 7 against the 256-cell tile.  The
+    tolerances of :func:`_check_null_kernel_16bit`."""
+    _check_null_kernel_16bit(cuda, dtype, J, K, S, N)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_null_kernel_reduced_precision_carries_nan_on_card(cuda, dtype):
+    """A NaN coefficient: every max NaN, as the plain version's ``amax``
+    gives it, and the NaN cell never counts."""
+    _check_null_kernel_16bit(cuda, dtype, 3, 5, 129, 4096 + 7,
+                             nan_cell=(2, 4100))
 
 
 @pytest.mark.cuda
