@@ -41,8 +41,11 @@ result):
    ``compute_dtype=torch.bfloat16`` and ``torch.float16`` (p_fwe <
    0.01), and B2's bf16 and f16 instances (the tensor cores) against
    their plain version on one chunk each; (d) B1 and B3 at
-   nw = 5 (K = 9) and nw = 9 (K = 17, the runtime-K instances) against
-   their plain versions, timed at the main path's shapes; (e) a small
+   nw = 5 (K = 9), nw = 9 (K = 17, the runtime-K instances) and nw =
+   13.5 (K = 25) against their plain versions, timed at the main path's
+   shapes (B3 also in its accumulate form, its bound with the old sums
+   read), and B1's runtime-K path held bit for bit to its compile-time
+   instances at K = 5 and 16 (64×64 and 11×64, both modes); (e) a small
    ``batch_layout='reference'`` ICA, card against CPU; (f) one B1
    launch under ``device_trace``, whose trace must hold its kernel;
 6. the per-window rotation null on 12 subjects × 120 s × 8×8 pairs,
@@ -142,15 +145,18 @@ result):
    in the same ranks: CMC within 5e-5 (the CIs within
    ``cuda_msc.ci_tolerance``), the rotation null's maxima within the
    gram tolerance, the phase null's within 1e-4/5e-5, ``p_fwe`` equal.
+   The ranks' CPU reference is the same on every host: MESH_CPU_THREADS
+   threads each and MKL in its reproducible mode (MESH_RANK_ENV); their
+   CPU settings are printed, and on a failed comparison both ranks'
+   arrays go into ``chip_smoke_out/mesh_small_failure_*/ranks.npz``.
    A rank that fails, or a join past its limit, fails the phase;
 13. one JSON line describing the kernels (B2's bf16 and f16 instances
    their own entries, bound by the tensor cores' 989 TFLOP/s and timed
-   beside ``torch.bmm`` in their type, B1 and B3 with their K = 9 and
-   K = 17 checks and the registers
-   and spills of every instance): per kernel its launches on its
-   main path (and on every path, ``launches_by_path``), its error
-   against the plain version, CUDA-event times of the kernel and the
-   plain version, its bound (the larger of the bytes it must move over
+   beside ``torch.bmm`` in their type, B1 and B3 with their K = 9, 17
+   and 25 checks, and the registers and spills of every instance): per
+   kernel its launches on its main path (and on every path,
+   ``launches_by_path``), its error against the plain version,
+   CUDA-event times of the kernel and the plain version, its bound (the larger of the bytes it must move over
    3.35 TB/s and the operations it must do over 67 TFLOP/s, float32 on
    the CUDA cores, counted from this run's shapes), the share of that
    bound it reaches, and, for B2, the time of ``torch.bmm`` of the same
@@ -266,6 +272,12 @@ OPT_CI_MOVED = 5e-3
 OPT_NULL_OBS_ATOL = 1e-5    # int16 upload: the observed map
 OPT_NWS = (5, 9)
 B1_CMP_WINDOWS = 3          # the plain jackknife's (W, K, F, E, M) tensors
+# B1 and B3 against their plain versions at a larger K too: nw 13.5 gives
+# K = 25 at the main path's 4 096-sample windows (nw 13 gives 24 there);
+# B1's runtime-K path held bit for bit to its compile-time instances at
+# nw 3 and 8.5 (K = 5 and 16)
+OPT_NW_LARGE = 13.5
+OPT_B1_BITWISE_NWS = (3, 8.5)
 ICA_REF_SHAPE, ICA_REF_BLOCK, ICA_REF_EPOCHS = (256 * 60, 4), 80, 3
 # the threefry checks: the null's phase draw (J, S, K, F) at the main
 # path's chunk, an odd flat length, and split(key, 1000)
@@ -360,6 +372,13 @@ MESH_SUBJECTS, MESH_SECONDS, MESH_SURROGATES = 4, 30.0, 2000
 MESH_SMALL = (3, 8.0, 4)        # subjects, seconds, channels: card vs CPU
 MESH_SMALL_SURROGATES, MESH_SMALL_CHUNK = 1000, 250
 MESH_PG_TIMEOUT_SEC, MESH_JOIN_SEC = 300, 420
+# The ranks' CPU reference, the same on every host: a fixed thread count
+# per rank, and MKL (torch's CPU FFT and BLAS) in its conditional
+# numerical reproducibility mode, whose code path does not depend on the
+# host's instruction set (AVX-512, AVX2 and SSE4.2 paths round the FFT
+# differently; ROADMAP C15)
+MESH_CPU_THREADS = 4
+MESH_RANK_ENV = {"MKL_CBWR": "COMPATIBLE"}
 STFT_RTOL, STFT_ATOL = 1e-5, 1e-6      # atol × the spectrum's maximum
 
 
@@ -702,16 +721,24 @@ def _coeff_instance(entry: str):
     m = re.search(r"coeff_pairs_kernelILi(\d+)E\w*?Lb([01])E", entry)
     if m:
         return f"K={m.group(1)} {('narrow', 'wide')[int(m.group(2))]}"
+    if "coeff_powers_kernel" in entry:
+        return "K=any powers"            # the runtime-K instance's first pass
     return "K=any" if "coeff_pairs_rt_kernel" in entry else None
 
 
 def _msc_instance(entry: str):
-    """B1's instance label of a kernel entry name, or None."""
-    m = re.search(r"msc_jackknife_(?:kernelILi(\d+)E|rt_kernelI)Lb([01])E",
-                  entry)
+    """B1's instance label of a kernel entry name, or None: "K=5 emg_max"
+    (compile-time), "K<=20 emg_max" (runtime-K, bucket 20; "K<=16" serves
+    the forced runtime-K path at K <= 16), "K=any emg_max" (beyond the
+    buckets)."""
+    m = re.search(r"msc_jackknife_(kernel|rt_kernel|any_kernel)I"
+                  r"(?:Li(\d+)E)?(?:Li\d+E)?Lb([01])E", entry)
     if not m:
         return None
-    return f"K={m.group(1) or 'any'} {('full', 'emg_max')[int(m.group(2))]}"
+    mode = ("full", "emg_max")[int(m.group(3))]
+    k = {"kernel": f"K={m.group(2)}", "rt_kernel": f"K<={m.group(2)}",
+         "any_kernel": "K=any"}[m.group(1)]
+    return f"{k} {mode}"
 
 
 def _tc_instance(entry: str):
@@ -724,9 +751,13 @@ def _tc_instance(entry: str):
 PTXAS_SOURCES = {
     "coeff_pairs": (_coeff_instance,
                     [f"K={k} {w}" for k in range(2, 17)
-                     for w in ("narrow", "wide")] + ["K=any"]),
+                     for w in ("narrow", "wide")] + ["K=any",
+                                                     "K=any powers"]),
     "msc_jackknife": (_msc_instance,
-                      [f"K={k} {w}" for k in [*range(2, 17), "any"]
+                      [f"{k} {w}" for k in [*(f"K={k}" for k in range(2, 17)),
+                                            "K<=16", "K<=18", "K<=20",
+                                            "K<=24", "K<=32",
+                                            "K=any"]
                        for w in ("full", "emg_max")]),
     "null_tile_tc": (_tc_instance, ["bf16", "f16"]),
 }
@@ -861,15 +892,18 @@ def coeff_chunks(cohort, device, nw=NW):
     return chunks
 
 
-def coeff_work(wc, K, nF, E, M) -> tuple[float, float]:
+def coeff_work(wc, K, nF, E, M, accumulate=False) -> tuple[float, float]:
     """(flops, bytes) of one B3 chunk: per (window, f, e, m) the
     denominator and its scale (4), per taper the cross term, its scaling
     and |y|² into the diagonal (12), per pair k < l the complex product
     into the sums (8); spectra read once, the 1 + 2·P2 sums written
-    once."""
+    once and, in the accumulate form (``out=``), the old sums read once
+    too."""
     P2 = K * (K - 1) // 2
     flops = wc * nF * E * M * (4 + 12 * K + 8 * P2)
-    nbytes = 8 * wc * K * nF * (E + M) + 4 * wc + 4 * (1 + 2 * P2) * nF * E * M
+    sums = 4 * (1 + 2 * P2) * nF * E * M
+    nbytes = (8 * wc * K * nF * (E + M) + 4 * wc
+              + sums * (2 if accumulate else 1))
     return float(flops), float(nbytes)
 
 
@@ -909,10 +943,14 @@ def check_coeff_kernel(cohort, device, reps=10) -> dict:
     plain_ms = cuda_ms(lambda: cuda_coeffs.coeff_pairs_plain(e, m, w), reps)
     wc, K, nF, E = e.shape
     M = m.shape[-1]
+    acc = roofline(ms_acc, *coeff_work(wc, K, nF, E, M, accumulate=True))
     out = {"max_abs_err": max(errs.values()) * wsum,
            "accumulate_max_abs_err": max(errs2.values()) * wsum2,
            "ms": ms, "accumulate_ms": ms_acc, "plain_ms": plain_ms,
            **roofline(ms, *coeff_work(wc, K, nF, E, M)),
+           "accumulate_bound_ms": acc["bound_ms"],
+           "accumulate_bound_by": acc["bound_by"],
+           "accumulate_share_of_bound": acc["share_of_bound"],
            "library_ms": None, "shape": [wc, K, nF, E, M]}
     log(json.dumps({"check": "coeff_pairs timing", "card": card_name_and_power(),
                     **out}))
@@ -2728,11 +2766,29 @@ def _small_mesh_results(mesh) -> dict:
     }
 
 
+def cpu_info() -> dict:
+    """What sets this process's CPU rounding: its thread count, the
+    cores, the CPU and the instruction set torch and MKL dispatch to."""
+    model = None
+    try:
+        with open("/proc/cpuinfo") as f:
+            model = next((line.split(":", 1)[1].strip() for line in f
+                          if line.startswith("model name")), None)
+    except OSError:
+        pass
+    lines = torch.__config__.parallel_info().splitlines()
+    return {"threads": torch.get_num_threads(), "cpu_count": os.cpu_count(),
+            "affinity": len(os.sched_getaffinity(0)),
+            "parallel_info": " ".join(x.strip() for x in lines[:2]),
+            "cpu_capability": torch.backends.cpu.get_cpu_capability(),
+            "model": model, "mkl_cbwr": os.environ.get("MKL_CBWR")}
+
+
 def _mesh_rank(rank: int, n_ranks: int, work: str) -> None:
     """One of (b)'s gloo ranks on the card (spawned).  Its host seconds
     go into ``step_sec``: from its start to a built mesh, the cohort's
     synthesis, the timed calls, and the small calls on the card and on
-    the CPU."""
+    the CPU, the latter at MESH_CPU_THREADS CPU threads."""
     import datetime as _dt
     import pickle
     import torch.distributed as dist
@@ -2746,8 +2802,7 @@ def _mesh_rank(rank: int, n_ranks: int, work: str) -> None:
         step[name] = time.perf_counter() - t0
         t0 = time.perf_counter()
 
-    # the ranks share the machine's cores for the CPU half of the check
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // n_ranks))
+    torch.set_num_threads(MESH_CPU_THREADS)
     dist.init_process_group(
         "gloo", store=dist.FileStore(os.path.join(work, "store"), n_ranks),
         rank=rank, world_size=n_ranks,
@@ -2757,27 +2812,29 @@ def _mesh_rank(rank: int, n_ranks: int, work: str) -> None:
         mesh = make_mesh()
         cpu_mesh = make_mesh(device_type="cpu")
         lap("start_to_mesh")
+        out = {"device": f"cuda:{torch.cuda.current_device()}",
+               "cpu_info": cpu_info()}
         cohort = make_cohort(MESH_SUBJECTS, MESH_SECONDS, N_EEG, N_EMG)
         lap("cohort")
         calls = mesh_calls(mesh, cohort, MESH_SURROGATES)
         lap("timed_calls")
-        card = _small_mesh_results(mesh)
+        out["calls"] = _mesh_summary(calls)
+        out["rotation_max_stat"] = calls["rotation_null"][0]["max_stat"]
+        out["card"] = _small_mesh_results(mesh)
         torch.cuda.synchronize()
         lap("small_card")
-        cpu = _small_mesh_results(cpu_mesh)
+        out["cpu"] = _small_mesh_results(cpu_mesh)
         lap("small_cpu")
-        out = {"device": f"cuda:{torch.cuda.current_device()}",
-               "calls": _mesh_summary(calls), "step_sec": step,
-               "rotation_max_stat": calls["rotation_null"][0]["max_stat"],
-               "card": card, "cpu": cpu}
+        out["step_sec"] = step
         with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
     finally:
         dist.destroy_process_group()
 
 
-def _require_small_mesh_close(card, cpu, what) -> dict:
-    """(b)'s card results against the CPU ranks' (docstring, phase 12)."""
+def small_mesh_close(card, cpu, what) -> dict:
+    """(b)'s card results against the CPU ranks' (docstring, phase 12);
+    raises on the first disagreement, else returns the largest errors."""
     errs = {}
     eeg, emg = make_cohort(*MESH_SMALL[:2], MESH_SMALL[2], MESH_SMALL[2],
                            seed=21)
@@ -2823,20 +2880,62 @@ def _require_small_mesh_close(card, cpu, what) -> dict:
     return errs
 
 
-def run_mesh_two_ranks() -> dict:
-    """(b): MESH_RANKS gloo ranks spawned on the one card (docstring,
-    phase 12).  Any rank's failure, or a join past MESH_JOIN_SEC, fails
-    the phase; no rank outlives it."""
+def small_mesh_arrays(ranks) -> dict:
+    """Every array and number of the ranks' small results, flat:
+    ``rank{r}/{card|cpu}/{call}/{key}``."""
+    flat = {}
+    for r, res in enumerate(ranks):
+        for side in ("card", "cpu"):
+            for call, d in res[side].items():
+                for key, v in d.items():
+                    if isinstance(v, (np.ndarray, float, int, np.generic)):
+                        flat[f"rank{r}/{side}/{call}/{key}"] = np.asarray(v)
+    return flat
+
+
+def _require_small_mesh_close(ranks, what) -> dict:
+    """:func:`small_mesh_close` on rank 0's results; on a failure both
+    ranks' card and CPU arrays go into an ``.npz`` under
+    ``chip_smoke_out/`` of this checkout, which the error names."""
+    try:
+        return small_mesh_close(ranks[0]["card"], ranks[0]["cpu"], what)
+    except AssertionError as exc:
+        stamp = datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
+        out_dir = REPO / "chip_smoke_out" / f"mesh_small_failure_{stamp}"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        np.savez(out_dir / "ranks.npz", **small_mesh_arrays(ranks))
+        (out_dir / "cpu_info.json").write_text(json.dumps(
+            [res["cpu_info"] for res in ranks]))
+        raise AssertionError(f"{exc} (both ranks' card and cpu arrays: "
+                             f"{out_dir / 'ranks.npz'})") from None
+
+
+def spawn_mesh_ranks(fn=_mesh_rank, args=(), env: dict | None = None):
+    """MESH_RANKS gloo ranks spawned on the one card, each running
+    ``fn(rank, MESH_RANKS, work, *args)`` with ``env`` (by default
+    MESH_RANK_ENV) added to its environment and pickling its results to
+    ``work/rank{rank}.pkl``: (seconds from spawn to join, each rank's
+    results).  Any rank's failure, or a join past MESH_JOIN_SEC, raises;
+    no rank outlives the call."""
     import pickle
-    import shutil
     import torch.multiprocessing as mp
 
+    env = MESH_RANK_ENV if env is None else env
     work = tempfile.mkdtemp(prefix="chip_smoke_mesh2_")
+    saved = {k: os.environ.get(k) for k in env}
     try:
         t0 = time.perf_counter()
-        ctx = mp.start_processes(_mesh_rank, args=(MESH_RANKS, work),
-                                 nprocs=MESH_RANKS, join=False,
-                                 start_method="spawn")
+        os.environ.update(env)
+        try:
+            ctx = mp.start_processes(
+                fn, args=(MESH_RANKS, work, *args),
+                nprocs=MESH_RANKS, join=False, start_method="spawn")
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
         try:
             while not ctx.join(timeout=5.0):
                 _require(time.perf_counter() - t0 < MESH_JOIN_SEC,
@@ -2853,6 +2952,16 @@ def run_mesh_two_ranks() -> dict:
                 ranks.append(pickle.load(f))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    return wall, ranks
+
+
+def run_mesh_two_ranks() -> dict:
+    """(b): MESH_RANKS gloo ranks spawned on the one card (docstring,
+    phase 12), their CPU reference at MESH_CPU_THREADS threads each and
+    MESH_RANK_ENV."""
+    wall, ranks = spawn_mesh_ranks()
+    log(json.dumps({"check": "mesh 2 ranks: CPU reference",
+                    "cpu_info": [res["cpu_info"] for res in ranks]}))
     for r, res in enumerate(ranks):
         _require(res["device"] == "cuda:0", f"rank {r} ran on "
                  f"{res['device']}")
@@ -2867,13 +2976,13 @@ def run_mesh_two_ranks() -> dict:
         _require(res["calls"]["rotation_null"]["p_fwe"] < 0.01,
                  f"rank {r}: 2-rank rotation null p_fwe "
                  f"{res['calls']['rotation_null']['p_fwe']}")
-    errs = _require_small_mesh_close(ranks[0]["card"], ranks[0]["cpu"],
-                                     "2 ranks small")
+    errs = _require_small_mesh_close(ranks, "2 ranks small")
     launches_sum = {k: sum(c["launches"][k] for res in ranks
                            for c in res["calls"].values())
                     for k in ranks[0]["calls"]["cohort_cmc"]["launches"]}
     return {"wall_sec": wall, "ranks": [res["calls"] for res in ranks],
             "step_sec": [res["step_sec"] for res in ranks],
+            "cpu_info": [res["cpu_info"] for res in ranks],
             "launches": launches_sum, "small_card_vs_cpu_max_abs_err": errs}
 
 
@@ -3057,24 +3166,75 @@ def check_msc_many_tapers(eeg, emg, device, nw, reps=5) -> dict:
 
 def check_coeff_many_tapers(cohort, device, nw, reps=5) -> dict:
     """B3 at ``nw``'s taper count on the main path's first chunk against
-    its plain version (COEFF_RTOL / COEFF_ATOL over the weight sum), its
-    time there and the bound."""
-    (e, m, w), _ = coeff_chunks(cohort, device, nw)
+    its plain version (COEFF_RTOL / COEFF_ATOL over the weight sum), then
+    the accumulate form (the second chunk added into the first's sums by
+    ``out=``) against the plain ``add_``; both forms' times there and
+    their bounds (the accumulate form's with the old sums read)."""
+    (e, m, w), second = coeff_chunks(cohort, device, nw)
     got = cuda_coeffs.coeff_pairs(e, m, w)
     ref = cuda_coeffs.coeff_pairs_plain(e, m, w)
     wsum = float(w.sum())
     errs, excess = _coeff_excess(got, ref, wsum, f"B3 nw={nw}")
     _require(max(excess.values()) <= 1.0,
              f"B3 nw={nw} disagrees with its plain version: {excess}")
-    del got, ref
+    cuda_coeffs.coeff_pairs(*second, out=got)
+    cuda_coeffs.coeff_pairs_plain(*second, out=ref)
+    wsum2 = wsum + float(second[2].sum())
+    errs2, excess2 = _coeff_excess(got, ref, wsum2, f"B3 nw={nw} accumulate")
+    _require(max(excess2.values()) <= 1.0,
+             f"B3 nw={nw} accumulate form disagrees: {excess2}")
+    del ref
+    torch.cuda.empty_cache()
     ms = cuda_ms(lambda: cuda_coeffs.coeff_pairs(e, m, w), reps)
+    ms_acc = cuda_ms(lambda: cuda_coeffs.coeff_pairs(*second, out=got), reps)
     wc, K, nF, E = e.shape
     M = m.shape[-1]
+    acc = roofline(ms_acc, *coeff_work(wc, K, nF, E, M, accumulate=True))
     out = {"K": K, "max_abs_err": max(errs.values()) * wsum,
-           "max_err_over_tolerance": excess, "ms": ms,
+           "max_err_over_tolerance": excess,
+           "accumulate_max_err_over_tolerance": excess2, "ms": ms,
            **roofline(ms, *coeff_work(wc, K, nF, E, M)),
+           "accumulate_ms": ms_acc, "accumulate_bound_ms": acc["bound_ms"],
+           "accumulate_bound_by": acc["bound_by"],
+           "accumulate_share_of_bound": acc["share_of_bound"],
            "shape": [wc, K, nF, E, M]}
+    del got
     torch.cuda.empty_cache()
+    return out
+
+
+def check_msc_runtime_k_bitwise(eeg, emg, device, nw) -> dict:
+    """B1's runtime-K path (``cuda_msc.msc_jackknife_runtime_k``) against
+    the compile-time instance of ``nw``'s K (<= 16): both EMG modes on the
+    main path's first B1_CMP_WINDOWS windows at 64×64 and at the task
+    CMC's 11×64 (two lanes a cell in the EMG-max scan), bit for bit, NaN
+    where NaN; then both paths' times at the main path's chunk."""
+    out = {}
+    for name, n_eeg in (("64x64", N_EEG), ("11x64",
+                                            len(CMC_EEG_CHANNEL_SUBSET))):
+        e, m, t_crit = main_path_msc_chunk(eeg[:, :n_eeg], emg, device, nw)
+        ec, mc = (x[:B1_CMP_WINDOWS].contiguous() for x in (e, m))
+        for emg_max in (True, False):
+            a = cuda_msc.msc_jackknife(ec, mc, t_crit, emg_max=emg_max)
+            b = cuda_msc.msc_jackknife_runtime_k(ec, mc, t_crit,
+                                                 emg_max=emg_max)
+            for key in a:
+                _require(bool(torch.equal(a[key].isnan(), b[key].isnan())
+                              and torch.equal(a[key].nan_to_num(),
+                                              b[key].nan_to_num())),
+                         f"B1 runtime-K path differs from the compile-time "
+                         f"instance: K={e.shape[1]} {name} emg_max={emg_max} "
+                         f"{key}")
+        if name == "64x64":
+            out = {"K": e.shape[1], "shape": list(e.shape),
+                   "bitwise_equal": True,
+                   "ms": cuda_ms(lambda: cuda_msc.msc_jackknife(e, m, t_crit),
+                                 5),
+                   "runtime_k_ms": cuda_ms(
+                       lambda: cuda_msc.msc_jackknife_runtime_k(e, m, t_crit),
+                       5)}
+        del e, m, ec, mc
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3176,10 +3336,14 @@ def run_options(eeg, emg, cohort, observed_gram, device, card) -> dict:
         out["b2_bf16"] = check_null_kernel_16bit(device, torch.bfloat16)
         out["b2_f16"] = check_null_kernel_16bit(device, torch.float16)
     with timer.stage("b1_b3_many_tapers"):
+        nws = (*OPT_NWS, OPT_NW_LARGE)
         out["b1"] = {f"nw={nw}": check_msc_many_tapers(eeg, emg, device, nw)
-                     for nw in OPT_NWS}
+                     for nw in nws}
+        out["b1_runtime_k_bitwise"] = {
+            f"nw={nw}": check_msc_runtime_k_bitwise(eeg, emg, device, nw)
+            for nw in OPT_B1_BITWISE_NWS}
         out["b3"] = {f"nw={nw}": check_coeff_many_tapers(cohort, device, nw)
-                     for nw in OPT_NWS}
+                     for nw in nws}
     reset_launches()
     with timer.stage("ica_reference"):
         out["ica_reference"] = check_ica_reference(device)
@@ -3440,6 +3604,7 @@ def main() -> int:
          "launches": n_cmc["msc_jackknife"],
          "launches_by_path": by_path("msc_jackknife"), **msc,
          "task_cmc_11x64": narrow, "many_tapers": options["b1"],
+         "runtime_k_bitwise": options["b1_runtime_k_bitwise"],
          "ptxas": report["msc_jackknife"]},
         {"name": "null_tile", "route": "cuda",
          "source": "mba_tpu_torch/csrc/null_tile.cu",
@@ -3462,7 +3627,8 @@ def main() -> int:
          "replaces": "mba_tpu/ops/pallas_coeffs.py:83",
          "launches": n_pallas["coeff_pairs"],
          "launches_by_path": by_path("coeff_pairs"), **coeff,
-         "many_tapers": options["b3"], "ptxas": report["coeff_pairs"]},
+         "many_tapers": options["b3"],
+         "ptxas": report["coeff_pairs"]},
         {"name": "threefry", "route": "cuda",
          "source": "mba_tpu_torch/csrc/threefry.cu", "replaces": None,
          "note": "port-only: jax.random's threefry2x32 bits for the nulls' "

@@ -41,6 +41,8 @@ _SIGNATURES = {
     # eeg, emg, coh, lo, hi, W, K, F, E, M, t_crit, emg_max, stream
     "mba_msc_jackknife": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                           _P),
+    "mba_msc_jackknife_rt": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                             _I, _P),
     # G, coefT, base, obs, partial_max, counts, max_out,
     # nF, S, ldg, JP, N, inv_J, stream
     "mba_null_tile": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
@@ -49,9 +51,12 @@ _SIGNATURES = {
     # nF, S, ldg, JP, N, ldc, inv_J, f16, stream
     "mba_null_tile_tc": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _F, _I, _P),
-    # eeg, emg, weights, diag, pr, pi, wc, K, F, E, M, accumulate, stream
-    "mba_coeff_pairs": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    # eeg, emg, weights, diag, pr, pi, scratch, wc, K, F, E, M,
+    # accumulate, stream
+    "mba_coeff_pairs": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _P),
+    "mba_coeff_pairs_rt": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _P),
     # k0, k1, out, n, mode, minval, span, stream
     "mba_threefry": (_U, _U, _P, _L, _I, _F, _F, _P),
     # keys, out, n_keys, n_per, minval, span, stream

@@ -56,10 +56,25 @@
 // lifted to 255 (one block an SM guaranteed): its 1 + K(K−1) sums still
 // grow past the register file from K ≈ 12 on, and ptxas spills the rest
 // (chip_smoke.ptxas_report prints registers and spills per instance).
-// Above K = 16 one runtime-K instance takes any K: a thread a cell, the
-// pairs in blocks of PAIR_BLOCK sums held in registers, each block a pass
-// over the chunk's windows with the spectra re-read from device memory
-// (L1/L2) and the powers formed again; the diagonal is the first pass.
+// Above K = 16 the runtime-K instance (coeff_pairs_rt_kernel) takes any K.
+// There the pair sums are the work: at K = 17 a cell-window is 17
+// products y_k but 136 pairs, 1 296 flops.  They are the strict upper
+// triangle of the K×K rank-wc update Σ_w y·yᴴ of each cell, cut into 4×4
+// tiles that a warp holds in registers for 64 cells (a SYRK micro-kernel
+// on the CUDA cores), with each y_k formed once into shared memory and
+// read by the tiles of its row and column.  A tile's 64 sums a thread
+// fit the 128 registers that 16 warps a block leave, without spills;
+// fewer warps (more registers) take two passes over the windows at K =
+// 17 and ran over half again as long (chip_probe.py coeff-split).  What
+// bounds it on the H100: the FMAs of the tiles and the shared-memory
+// reads of y (8 a 4×4 tile a window), then the bytes: 783 MB of sums at the main path's chunk (K =
+// 17, F = 175, 64×64), read too in the accumulate form.  Its first form (a
+// thread a cell, 8 pair sums a pass over the chunk, the spectra re-read
+// from L1/L2 and the scale formed again each pass) took 14.985-15.102 ms
+// there (NVIDIA H100 80GB HBM3, 700 W); this one is timed by
+// chip_smoke.py and split by chip_probe.py
+// coeff-split (PERF.md).  The compile-time instances stay faster at K =
+// 12-16 (chip_probe.py coeff-dispatch), so the dispatch stays above 16.
 //
 // Numerics as the plain version's: no fast math.  The clamp is
 // NaN-propagating, as jnp.maximum: a NaN spectrum gives NaN sums even in a
@@ -67,7 +82,8 @@
 // and sqrtf (a zero weight gives their exact result, ±0 or NaN, without
 // the division; see the window loop); denormals are kept (no -ftz), so a
 // denormal pe·pm clamps to FLT_MIN as on the CPU.  Sums run in window
-// order, one thread a cell: no atomics, deterministic.  The products are
+// order, one thread a sum (the runtime-K diagonal adds its tiles' partial
+// sums in block order): no atomics, deterministic.  The products are
 // fused into FMAs, which the plain version does not: agreement is to
 // float32 rounding, stated with the wrapper.
 
@@ -425,118 +441,650 @@ cudaError_t launch(const void* eeg, const void* emg, const void* weights,
   return cudaGetLastError();
 }
 
-// ---- any K: the runtime-K instance -------------------------------------
+// ---- any K: the runtime-K instance ----------------------------------
+//
+// A unit is (frequency, UE EEG × UM EMG cells), 64 cells, UM = the lanes
+// along m (a power of two, up to 8): two lane groups of 32 cells, h = 0, 1.
+// A cell's pair sums are the strict upper triangle of the K×K product
+// Σ_w y·yᴴ, cut into RT_TB × RT_TB tiles (a, b), a <= b, of nb = ⌈K/4⌉
+// blocks: in each pass over the unit's windows, warp w owns one tile for
+// both lane groups, its sums in registers.  The windows come in groups of
+// G; one barrier a group: while group s+2's spectra land (cp.async ring
+// of three), the block forms group s+1's scales, and then, window by
+// window, group s's products y (shared memory, double-buffered), each
+// thread a few, and the tiles' sums of group s−1's: each warp alternates
+// the two, so one's loads wait while the other's FMAs issue.  The channel
+// powers pe, pm come from a first pass over the chunk
+// (coeff_powers_kernel), each formed once, and are staged with the
+// spectra.
 
-constexpr int RT_THREADS = 128;
-constexpr int PAIR_BLOCK = 8;
+constexpr int RT_TB = 4;          // tapers a tile side
+constexpr int RT_CELLS = 64;      // cells a unit
+constexpr int RT_MAX_WARPS = 16;  // tiles a pass
+constexpr int RT_STAGES = 3;      // groups in the ring
+constexpr int RT_LOCS = 6;        // steps whose place a block keeps
 
-__global__ void __launch_bounds__(RT_THREADS)
-coeff_pairs_rt_kernel(const float2* __restrict__ eeg,
-                      const float2* __restrict__ emg,
-                      const float* __restrict__ weights,
-                      float* __restrict__ diag, float* __restrict__ pr,
-                      float* __restrict__ pi, int wc, int K, int F, int E,
-                      int M, int accumulate) {
-  const size_t N = (size_t)E * M, FN = (size_t)F * N;
-  const size_t cell = (size_t)blockIdx.x * RT_THREADS + threadIdx.x;
-  if (cell >= FN) return;
-  const int f = (int)(cell / N);
-  const int e = (int)((cell - (size_t)f * N) / M);
-  const int m = (int)(cell - (size_t)f * N - (size_t)e * M);
-  const int P2 = K * (K - 1) / 2;
-  // taper k of window i: row i·K + k of the (wc·K, F, C) views
-  auto E_at = [&](int i, int k) {
-    return __ldg(eeg + (((size_t)i * K + k) * F + f) * E + e);
-  };
-  auto M_at = [&](int i, int k) {
-    return __ldg(emg + (((size_t)i * K + k) * F + f) * M + m);
-  };
-  // window i's scale sqrt(w / max(pe·pm, FLT_MIN)), as the kernel above
-  auto scale = [&](int i) {
-    float pe = 0.f, pm = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const float2 x = E_at(i, k), y = M_at(i, k);
-      pe += x.x * x.x + x.y * x.y;
-      pm += y.x * y.x + y.y * y.y;
-    }
-    const float w = weights[i];
-    const float den = nan_max(pe * pm, FLT_MIN);
-    return w == 0.f ? (den != den ? den : w) : sqrtf(w / den);
-  };
-  auto product = [&](int i, int k, float sc, float& yr, float& yi) {
-    const float2 x = E_at(i, k), y = M_at(i, k);
-    yr = (x.x * y.x + x.y * y.y) * sc;
-    yi = (x.x * y.y - x.y * y.x) * sc;
-  };
+struct RtGeom {
+  int wc, K, F, E, M;
+  int log_lm, UE, UM, log_ue;     // unit: UE × UM cells, UM = 1 << log_lm
+  int units_e, units_m, n_units;
+  int nb, n_tiles, warps, passes, G, groups;
+  int slot_floats;                // ring slot (rt_slot_floats)
+  int vec, accumulate;
+};
 
-  float d = 0.f;
-  for (int i = 0; i < wc; ++i) {
-    const float sc = scale(i);
-    for (int k = 0; k < K; ++k) {
-      float yr, yi;
-      product(i, k, sc, yr, yi);
-      d = fmaf(yi, yi, fmaf(yr, yr, d));
-    }
+// floats of one ring slot: E [G·K][UE] and M [G·K][UM] (float2), then
+// pe [G][UE], pm [G][UM] and w [G], rounded up to 16 bytes
+__host__ __device__ constexpr int rt_slot_floats(int G, int K, int UE,
+                                                 int UM) {
+  return (2 * G * K * (UE + UM) + G * (UE + UM + 1) + 3) / 4 * 4;
+}
+
+// shared memory: the ring, the products y [2] (float2 [G·K][64]), the
+// scales [2][G][64] and the diagonal's partial sums [2][nb][64]
+__host__ __device__ constexpr int rt_smem_floats(int G, int K, int UE,
+                                                 int UM, int nb) {
+  return RT_STAGES * rt_slot_floats(G, K, UE, UM)
+      + 2 * 2 * G * K * RT_CELLS + 2 * G * RT_CELLS + 2 * nb * RT_CELLS;
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+// Rows row0 .. row0 + rows of the (wc·K, F, C) view (window row / K,
+// taper row % K) at frequency f, channels c0 .. c0 + 2^log_cb, into
+// dst[r][2^log_cb]; zero past row_end (= wc·K) and past C
+__device__ __forceinline__ void copy_rows_rt(float2* dst, const float2* src,
+                                             int C, int c0, int log_cb,
+                                             int f, int F, int row0,
+                                             int rows, int row_end, bool vec,
+                                             int t, int n_threads) {
+  const int per = vec ? 2 : 1;
+  const int log_q = log_cb - (vec ? 1 : 0);
+  const int items = rows << log_q;
+  for (int i = t; i < items; i += n_threads) {
+    const int r = i >> log_q;
+    const int c = (i & ((1 << log_q) - 1)) * per;
+    const int row = row0 + r;
+    const bool ok = row < row_end && c0 + c < C;
+    const float2* s = ok ? src + ((size_t)row * F + f) * C + c0 + c : src;
+    cp_async(dst + (r << log_cb) + c, s, 8 * per, ok ? 8 * per : 0);
   }
-  diag[cell] = accumulate ? __fadd_rn(diag[cell], d) : d;
+}
 
-  // pairs k < l in triu order, PAIR_BLOCK of them a pass
-  int k0 = 0, l0 = 1;
-  for (int p0 = 0; p0 < P2; p0 += PAIR_BLOCK) {
-    int kk[PAIR_BLOCK], ll[PAIR_BLOCK];
-    float ar[PAIR_BLOCK], ai[PAIR_BLOCK];
-#pragma unroll
-    for (int j = 0; j < PAIR_BLOCK; ++j) {
-      kk[j] = k0;
-      ll[j] = l0;
-      ar[j] = ai[j] = 0.f;
-      if (++l0 == K) l0 = ++k0 + 1;
+// The first pass: each window's channel powers Σ_k |x_k|², in the
+// compile-time kernel's operations, for the EEG (wc, F, E) and then the
+// EMG (wc, F, M) channels: a thread a (window, frequency, channel)
+__global__ void __launch_bounds__(256)
+coeff_powers_kernel(const float2* __restrict__ eeg,
+                    const float2* __restrict__ emg, float* __restrict__ pe,
+                    float* __restrict__ pm, int wc, int K, int F, int E,
+                    int M) {
+  const long long ne = (long long)wc * F * E, n = ne + (long long)wc * F * M;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < n; i += (long long)gridDim.x * blockDim.x) {
+    const bool is_e = i < ne;
+    const long long j = is_e ? i : i - ne;
+    const int C = is_e ? E : M;
+    const long long FC = (long long)F * C;
+    const long long w = j / FC, rest = j - w * FC;   // rest = f·C + c
+    const float2* x = (is_e ? eeg : emg) + w * K * FC + rest;
+    float pw = 0.f;
+    for (int k = 0; k < K; ++k) {
+      const float2 v = x[k * FC];
+      pw += v.x * v.x + v.y * v.y;
     }
-    const int np = P2 - p0 < PAIR_BLOCK ? P2 - p0 : PAIR_BLOCK;
-    for (int i = 0; i < wc; ++i) {
-      const float sc = scale(i);
+    (is_e ? pe : pm)[j] = pw;
+  }
+}
+
+// One window's products yw (yw[k·64] = y_k of this lane's cell) into an
+// off-diagonal tile: 4 rows k0.. × RB columns l0.. of pairs, for both lane
+// groups, every product added by one FMA (the compile-time kernel's form)
+template <int RB>
+__device__ __forceinline__ void rt_tile_off(float (&ar)[2][RT_TB][RT_TB],
+                                            float (&ai)[2][RT_TB][RT_TB],
+                                            const float2* yw, int k0,
+                                            int l0) {
 #pragma unroll
-      for (int j = 0; j < PAIR_BLOCK; ++j)
-        if (j < np) {
-          float yrk, yik, yrl, yil;
-          product(i, kk[j], sc, yrk, yik);
-          product(i, ll[j], sc, yrl, yil);
-          ar[j] = fmaf(yik, yil, fmaf(yrk, yrl, ar[j]));
-          ai[j] = fmaf(-yrk, yil, fmaf(yik, yrl, ai[j]));
-        }
-    }
+  for (int h = 0; h < 2; ++h) {
+    float2 yk[RT_TB], yl[RB];
 #pragma unroll
-    for (int j = 0; j < PAIR_BLOCK; ++j)
-      if (j < np) {
-        const size_t o = (size_t)(p0 + j) * FN + cell;
-        pr[o] = accumulate ? __fadd_rn(pr[o], ar[j]) : ar[j];
-        pi[o] = accumulate ? __fadd_rn(pi[o], ai[j]) : ai[j];
+    for (int a = 0; a < RT_TB; ++a) yk[a] = yw[(k0 + a) * RT_CELLS + 32 * h];
+#pragma unroll
+    for (int b = 0; b < RB; ++b) yl[b] = yw[(l0 + b) * RT_CELLS + 32 * h];
+#pragma unroll
+    for (int a = 0; a < RT_TB; ++a)
+#pragma unroll
+      for (int b = 0; b < RB; ++b) {
+        ar[h][a][b] = fmaf(yk[a].y, yl[b].y,
+                           fmaf(yk[a].x, yl[b].x, ar[h][a][b]));
+        ai[h][a][b] = fmaf(-yk[a].x, yl[b].y,
+                           fmaf(yk[a].y, yl[b].x, ai[h][a][b]));
       }
   }
 }
 
+// One window into a diagonal tile: its RA tapers k0.., the pairs a < b
+// among them and the diagonal's partial sum Σ |y_k|² over them
+template <int RA>
+__device__ __forceinline__ void rt_tile_diag(float (&ar)[2][RT_TB][RT_TB],
+                                             float (&ai)[2][RT_TB][RT_TB],
+                                             float (&dd)[2],
+                                             const float2* yw, int k0) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float2 yk[RA];
+#pragma unroll
+    for (int a = 0; a < RA; ++a) yk[a] = yw[(k0 + a) * RT_CELLS + 32 * h];
+#pragma unroll
+    for (int a = 0; a < RA; ++a) {
+      dd[h] = fmaf(yk[a].y, yk[a].y, fmaf(yk[a].x, yk[a].x, dd[h]));
+#pragma unroll
+      for (int b = a + 1; b < RA; ++b) {
+        ar[h][a][b] = fmaf(yk[a].y, yk[b].y,
+                           fmaf(yk[a].x, yk[b].x, ar[h][a][b]));
+        ai[h][a][b] = fmaf(-yk[a].x, yk[b].y,
+                           fmaf(yk[a].y, yk[b].x, ai[h][a][b]));
+      }
+    }
+  }
+}
+
+// A tile's sums out (added to what the outputs hold with `accumulate`:
+// out + sum, one rounding), then zeroed.  Lanes run along the cells, so
+// a warp's stores to one pair's plane are consecutive along m.
+template <int RA, int RB, bool DIAG>
+__device__ __forceinline__ void rt_tile_store(float (&ar)[2][RT_TB][RT_TB],
+                                              float (&ai)[2][RT_TB][RT_TB],
+                                              float* __restrict__ pr,
+                                              float* __restrict__ pi,
+                                              const size_t (&o)[2],
+                                              const bool (&ok)[2], int k0,
+                                              int l0, int K, size_t FN,
+                                              bool accumulate) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int a = 0; a < RA; ++a) {
+      const int k = k0 + a;
+      const size_t row = (size_t)(k * (2 * K - k - 1) / 2) * FN + o[h];
+      float opr[RB], opi[RB];
+      if (ok[h] && accumulate) {
+        // the old sums of the row read together, in flight at once
+#pragma unroll
+        for (int b = DIAG ? a + 1 : 0; b < RB; ++b) {
+          const size_t q = row + (size_t)(l0 + b - k - 1) * FN;
+          opr[b] = pr[q];
+          opi[b] = pi[q];
+        }
+      }
+#pragma unroll
+      for (int b = DIAG ? a + 1 : 0; b < RB; ++b) {
+        if (ok[h]) {
+          const size_t q = row + (size_t)(l0 + b - k - 1) * FN;
+          // streaming stores: nothing reads the sums again in this launch
+          __stcs(pr + q, accumulate ? __fadd_rn(opr[b], ar[h][a][b])
+                                    : ar[h][a][b]);
+          __stcs(pi + q, accumulate ? __fadd_rn(opi[b], ai[h][a][b])
+                                    : ai[h][a][b]);
+        }
+        ar[h][a][b] = ai[h][a][b] = 0.f;
+      }
+    }
+  }
+}
+
+// The old sums a tile's store will read in the accumulate form, asked of
+// L2 before its pass's last group is added, so that the store's loads do
+// not wait on device memory
+template <int RA, int RB, bool DIAG>
+__device__ __forceinline__ void rt_tile_prefetch(const float* pr,
+                                                 const float* pi,
+                                                 const size_t (&o)[2],
+                                                 const bool (&ok)[2], int k0,
+                                                 int l0, int K, size_t FN) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!ok[h]) continue;
+#pragma unroll
+    for (int a = 0; a < RA; ++a) {
+      const int k = k0 + a;
+      const size_t row = (size_t)(k * (2 * K - k - 1) / 2) * FN + o[h];
+#pragma unroll
+      for (int b = DIAG ? a + 1 : 0; b < RB; ++b) {
+        const size_t q = row + (size_t)(l0 + b - k - 1) * FN;
+        asm volatile("prefetch.global.L2 [%0];" ::"l"(pr + q));
+        asm volatile("prefetch.global.L2 [%0];" ::"l"(pi + q));
+      }
+    }
+  }
+}
+
+// tile index t of the upper triangle of nb blocks, row-major → (a, b)
+__device__ __forceinline__ void rt_tile(int t, int nb, int& a, int& b) {
+  a = 0;
+  while (t >= nb - a) {
+    t -= nb - a;
+    ++a;
+  }
+  b = a + t;
+}
+
+__global__ void __launch_bounds__(32 * RT_MAX_WARPS, 1)
+coeff_pairs_rt_kernel(const float2* __restrict__ eeg,
+                      const float2* __restrict__ emg,
+                      const float* __restrict__ weights,
+                      const float* __restrict__ pe,
+                      const float* __restrict__ pm,
+                      float* __restrict__ diag, float* __restrict__ pr,
+                      float* __restrict__ pi, const RtGeom g) {
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  const int K = g.K, G = g.G, UE = g.UE, UM = g.UM;
+  const int t = threadIdx.x, n_threads = blockDim.x;
+  const int warp = t >> 5, lane = t & 31;
+  // shared memory (rt_smem_floats); a slot: E, M rows, pe, pm, w
+  float* const ring = smem;
+  float2* const ybuf =
+      reinterpret_cast<float2*>(ring + RT_STAGES * g.slot_floats);
+  float* const scb = reinterpret_cast<float*>(ybuf + 2 * G * K * RT_CELLS);
+  float* const dpart = scb + 2 * G * RT_CELLS;
+  const int off_m = 2 * G * K * UE;
+  const int off_pe = off_m + 2 * G * K * UM;
+  const int off_pm = off_pe + G * UE;
+  const int off_w = off_pm + G * UM;
+  const int ych = G * K * RT_CELLS;          // float2s of one y buffer
+
+  const size_t N = (size_t)g.E * g.M, FN = (size_t)g.F * N;
+  const int my_units = (int)blockIdx.x < g.n_units
+      ? (g.n_units - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  const int steps = my_units * g.passes * g.groups;
+  const int per_f = g.units_e * g.units_m;
+  // a step's place: this block's unit i, its (f, e0, m0), pass and group.
+  // Thread 0 walks the block's steps in order, a division only where a
+  // unit starts, and keeps the places of RT_LOCS steps in shared memory:
+  // an iteration reads steps it−2 .. it+2 and writes step it+3.  The walk
+  // lies in shared memory too: in registers, every thread would hold it,
+  // and ptxas would spill beside the tiles' sums at 128 registers
+  struct Loc {
+    int i, f, e0, m0, pass, grp;
+  };
+  __shared__ Loc locs[RT_LOCS];
+  __shared__ Loc walk;
+  if (t == 0) walk = Loc{0, 0, 0, 0, 0, 0};
+  auto put = [&](int step) {
+    if (t != 0 || step >= steps) return;
+    if (walk.pass == 0 && walk.grp == 0) {
+      const int u = blockIdx.x + walk.i * gridDim.x;
+      walk.f = u / per_f;
+      const int r = u - walk.f * per_f;
+      const int ue = r / g.units_m;
+      walk.e0 = ue * UE;
+      walk.m0 = (r - ue * g.units_m) * UM;
+    }
+    locs[step % RT_LOCS] = walk;
+    if (++walk.grp == g.groups) {
+      walk.grp = 0;
+      if (++walk.pass == g.passes) {
+        walk.pass = 0;
+        ++walk.i;
+      }
+    }
+  };
+  auto locate = [&](int step) { return locs[step % RT_LOCS]; };
+  auto slot_of = [&](int step) {
+    return ring + (step % RT_STAGES) * g.slot_floats;
+  };
+  auto windows = [&](const Loc& l) {
+    return max(0, min(G, g.wc - l.grp * G));
+  };
+  // a group's spectra, channel powers and weights, copied by every thread
+  auto stage = [&](int step) {
+    if (step < steps) {
+      const Loc l = locate(step);
+      float* slot = slot_of(step);
+      const int win0 = l.grp * G;
+      copy_rows_rt(reinterpret_cast<float2*>(slot), eeg, g.E, l.e0,
+                   g.log_ue, l.f, g.F, win0 * K, G * K, g.wc * K, g.vec, t,
+                   n_threads);
+      copy_rows_rt(reinterpret_cast<float2*>(slot + off_m), emg, g.M, l.m0,
+                   g.log_lm, l.f, g.F, win0 * K, G * K, g.wc * K, g.vec, t,
+                   n_threads);
+      for (int i = t; i < G * (UE + UM + 1); i += n_threads) {
+        const int wl = i / (UE + UM + 1), c = i - wl * (UE + UM + 1);
+        const int win = win0 + wl;
+        bool ok = win < g.wc;
+        const float* src = weights + (ok ? win : 0);
+        float* dst = slot + off_w + wl;
+        if (c < UE) {
+          ok = ok && l.e0 + c < g.E;
+          src = ok ? pe + ((size_t)win * g.F + l.f) * g.E + l.e0 + c : pe;
+          dst = slot + off_pe + wl * UE + c;
+        } else if (c < UE + UM) {
+          ok = ok && l.m0 + c - UE < g.M;
+          src = ok ? pm + ((size_t)win * g.F + l.f) * g.M + l.m0 + c - UE
+                   : pm;
+          dst = slot + off_pm + wl * UM + c - UE;
+        }
+        cp_async4(dst, src, ok);
+      }
+    }
+    cp_async_commit();
+  };
+  // a group's scales sqrt(w / max(pe·pm, FLT_MIN)), a thread a
+  // cell-window, in IEEE arithmetic; where w is ±0 the scale is w itself,
+  // or NaN where the denominator is NaN (as the compile-time kernel)
+  auto scales = [&](int step) {
+    const Loc l = locate(step);
+    const float* slot = slot_of(step);
+    float* sc = scb + (step & 1) * G * RT_CELLS;
+    for (int icw = t; icw < windows(l) * RT_CELLS; icw += n_threads) {
+      const int i = icw >> 6, c = icw & (RT_CELLS - 1);
+      const float w = slot[off_w + i];
+      const float den = nan_max(slot[off_pe + i * UE + (c >> g.log_lm)]
+                                    * slot[off_pm + i * UM + (c & (UM - 1))],
+                                FLT_MIN);
+      sc[icw] = w == 0.f ? (den != den ? den : w) : sqrtf(w / den);
+    }
+  };
+
+  float ar[2][RT_TB][RT_TB], ai[2][RT_TB][RT_TB], dd[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int a = 0; a < RT_TB; ++a)
+#pragma unroll
+      for (int b = 0; b < RT_TB; ++b) ar[h][a][b] = ai[h][a][b] = 0.f;
+
+  // this thread's two cells in a unit: c = 32·h + lane
+  int el[2], ml[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    el[h] = (32 * h + lane) >> g.log_lm;
+    ml[h] = (32 * h + lane) & (UM - 1);
+  }
+
+  // prologue: the places of steps 0-2, groups 0 and 1 in flight, group
+  // 0's scales
+  put(0);
+  put(1);
+  put(2);
+  __syncthreads();
+  stage(0);
+  stage(1);
+  cp_async_wait<1>();
+  __syncthreads();
+  if (steps > 0) scales(0);
+
+  int pending = -1;                  // a unit whose diagonal is to be summed
+  for (int it = 0; it <= steps; ++it) {
+    cp_async_wait<0>();              // groups it and it+1 have landed ...
+    __syncthreads();                 // ... for every thread, with group
+                                     // it's scales and group it−1's y
+    if (pending >= 0) {
+      // the diagonal of the unit that ended last group: its partial sums
+      // (one a diagonal tile) added in block order
+      const Loc l = locate(pending);
+      const float* dp = dpart + (l.i & 1) * g.nb * RT_CELLS;
+      if (t < RT_CELLS) {
+        const int e = l.e0 + (t >> g.log_lm), m = l.m0 + (t & (UM - 1));
+        if (e < g.E && m < g.M) {
+          float d = dp[t];
+          for (int q = 1; q < g.nb; ++q) d += dp[q * RT_CELLS + t];
+          const size_t od = (size_t)l.f * N + (size_t)e * g.M + m;
+          diag[od] = g.accumulate ? __fadd_rn(diag[od], d) : d;
+        }
+      }
+      pending = -1;
+    }
+    put(it + 3);
+    stage(it + 2);
+    if (it + 1 < steps) scales(it + 1);
+    // group it's products (np windows) and group it−1's tile sums (na
+    // windows), window by window
+    // (the pointers are set at it == steps too, where no window reads
+    // them)
+    const int np = it < steps ? windows(locate(it)) : 0;
+    int na = 0;
+    const float2* const Es = reinterpret_cast<const float2*>(slot_of(it));
+    const float2* const Ms =
+        reinterpret_cast<const float2*>(slot_of(it) + off_m);
+    const float* const sc = scb + (it & 1) * G * RT_CELLS;
+    float2* const yp = ybuf + (it & 1) * ych;
+    Loc l = {0, 0, 0, 0, 0, 0};
+    int tile = g.n_tiles, a = 0, b = 0;
+    const float2* ya = ybuf + ((it + 1) & 1) * ych + lane;   // group it−1
+    if (it > 0) {
+      l = locate(it - 1);
+      na = windows(l);
+      tile = l.pass * g.warps + warp;
+      if (tile < g.n_tiles) rt_tile(tile, g.nb, a, b);
+    }
+    const int k0 = RT_TB * a, l0 = RT_TB * b;
+    const int RA = min(RT_TB, K - k0), RB = min(RT_TB, K - l0);
+    // window i's K·64 products y_k, a few a thread, cells along lanes
+    auto products = [&](int i) {
+      for (int q = t; q < K * RT_CELLS; q += n_threads) {
+        const int k = q >> 6, c = q & (RT_CELLS - 1);
+        const float2 x = Es[(i * K + k) * UE + (c >> g.log_lm)];
+        const float2 v = Ms[(i * K + k) * UM + (c & (UM - 1))];
+        const float s = sc[i * RT_CELLS + c];
+        yp[(i * K + k) * RT_CELLS + c] =
+            make_float2((x.x * v.x + x.y * v.y) * s,
+                        (x.x * v.y - x.y * v.x) * s);
+      }
+    };
+    auto sums = [&](int i) {
+      const float2* yw = ya + i * K * RT_CELLS;
+      if (a == b) {
+        switch (RA) {
+          case 1: rt_tile_diag<1>(ar, ai, dd, yw, k0); break;
+          case 2: rt_tile_diag<2>(ar, ai, dd, yw, k0); break;
+          case 3: rt_tile_diag<3>(ar, ai, dd, yw, k0); break;
+          default: rt_tile_diag<4>(ar, ai, dd, yw, k0); break;
+        }
+      } else {
+        switch (RB) {
+          case 1: rt_tile_off<1>(ar, ai, yw, k0, l0); break;
+          case 2: rt_tile_off<2>(ar, ai, yw, k0, l0); break;
+          case 3: rt_tile_off<3>(ar, ai, yw, k0, l0); break;
+          default: rt_tile_off<4>(ar, ai, yw, k0, l0); break;
+        }
+      }
+    };
+    // group it−1 ends its pass: in the accumulate form, the tile's old
+    // sums asked of L2 before its last windows
+    size_t o[2];
+    bool ok[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int e = l.e0 + el[h], m = l.m0 + ml[h];
+      ok[h] = e < g.E && m < g.M;
+      o[h] = (size_t)l.f * N + (size_t)e * g.M + m;
+    }
+    if (it > 0 && g.accumulate && l.grp == g.groups - 1
+        && tile < g.n_tiles) {
+      if (a == b) {
+        switch (RA) {
+          case 1: break;
+          case 2: rt_tile_prefetch<2, 2, true>(pr, pi, o, ok, k0, l0, K, FN);
+                  break;
+          case 3: rt_tile_prefetch<3, 3, true>(pr, pi, o, ok, k0, l0, K, FN);
+                  break;
+          default: rt_tile_prefetch<4, 4, true>(pr, pi, o, ok, k0, l0, K,
+                                                FN); break;
+        }
+      } else {
+        switch (RB) {
+          case 1: rt_tile_prefetch<4, 1, false>(pr, pi, o, ok, k0, l0, K,
+                                                FN); break;
+          case 2: rt_tile_prefetch<4, 2, false>(pr, pi, o, ok, k0, l0, K,
+                                                FN); break;
+          case 3: rt_tile_prefetch<4, 3, false>(pr, pi, o, ok, k0, l0, K,
+                                                FN); break;
+          default: rt_tile_prefetch<4, 4, false>(pr, pi, o, ok, k0, l0, K,
+                                                 FN); break;
+        }
+      }
+    }
+    // window by window: a warp's product loads wait while other warps'
+    // FMAs issue
+    for (int i = 0; i < G; ++i) {
+      if (i < np) products(i);
+      if (i < na && tile < g.n_tiles) sums(i);
+    }
+    if (it == 0 || l.grp != g.groups - 1) continue;
+    // group it−1 ended its pass: store the tile's pairs, keep the
+    // diagonal's partial sums for the unit's end
+    if (tile < g.n_tiles) {
+      if (a == b) {
+        float* dp = dpart + (l.i & 1) * g.nb * RT_CELLS;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          dp[a * RT_CELLS + 32 * h + lane] = dd[h];
+          dd[h] = 0.f;
+        }
+        switch (RA) {
+          case 1: break;      // one taper: no pair
+          case 2: rt_tile_store<2, 2, true>(ar, ai, pr, pi, o, ok, k0, l0, K,
+                                            FN, g.accumulate); break;
+          case 3: rt_tile_store<3, 3, true>(ar, ai, pr, pi, o, ok, k0, l0, K,
+                                            FN, g.accumulate); break;
+          default: rt_tile_store<4, 4, true>(ar, ai, pr, pi, o, ok, k0, l0,
+                                             K, FN, g.accumulate); break;
+        }
+      } else {
+        switch (RB) {
+          case 1: rt_tile_store<4, 1, false>(ar, ai, pr, pi, o, ok, k0, l0,
+                                             K, FN, g.accumulate); break;
+          case 2: rt_tile_store<4, 2, false>(ar, ai, pr, pi, o, ok, k0, l0,
+                                             K, FN, g.accumulate); break;
+          case 3: rt_tile_store<4, 3, false>(ar, ai, pr, pi, o, ok, k0, l0,
+                                             K, FN, g.accumulate); break;
+          default: rt_tile_store<4, 4, false>(ar, ai, pr, pi, o, ok, k0, l0,
+                                              K, FN, g.accumulate); break;
+        }
+      }
+    }
+    if (l.pass == g.passes - 1) pending = it - 1;  // summed after the barrier
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (pending >= 0 && t < RT_CELLS) {
+    const Loc l = locate(pending);
+    const float* dp = dpart + (l.i & 1) * g.nb * RT_CELLS;
+    const int e = l.e0 + (t >> g.log_lm), m = l.m0 + (t & (UM - 1));
+    if (e < g.E && m < g.M) {
+      float d = dp[t];
+      for (int q = 1; q < g.nb; ++q) d += dp[q * RT_CELLS + t];
+      const size_t od = (size_t)l.f * N + (size_t)e * g.M + m;
+      diag[od] = g.accumulate ? __fadd_rn(diag[od], d) : d;
+    }
+  }
+}
+
+// The unit shape, the tiles and the window group for K tapers; false
+// where even one window a group does not fit the shared memory
+bool rt_geometry(RtGeom& g, int smem_max) {
+  // lanes along m: the fewest that cover M, at most 8, so that a unit of
+  // 64 cells stages 8 + 8 channels (at M >= 8), the fewest rows for its
+  // cells
+  int LM = 1;
+  while (LM < 8 && LM < g.M) LM *= 2;
+  g.log_lm = ilog2(LM);
+  g.UM = LM;
+  g.UE = RT_CELLS / LM;
+  g.log_ue = ilog2(g.UE);
+  g.units_e = (g.E + g.UE - 1) / g.UE;
+  g.units_m = (g.M + g.UM - 1) / g.UM;
+  g.nb = (g.K + RT_TB - 1) / RT_TB;
+  g.n_tiles = g.nb * (g.nb + 1) / 2;
+  g.warps = g.n_tiles < RT_MAX_WARPS ? g.n_tiles : RT_MAX_WARPS;
+  g.passes = (g.n_tiles + g.warps - 1) / g.warps;
+  for (g.G = 8; g.G >= 1; g.G /= 2)
+    if ((long long)rt_smem_floats(g.G, g.K, g.UE, g.UM, g.nb) * 4
+        <= smem_max)
+      break;
+  if (g.G < 1) return false;
+  g.slot_floats = rt_slot_floats(g.G, g.K, g.UE, g.UM);
+  return true;
+}
+
+// The first pass into `scratch` (pe: wc·F·E floats, then pm: wc·F·M),
+// then the pair pass
 cudaError_t launch_rt(const void* eeg, const void* emg, const void* weights,
-                      void* diag, void* pr, void* pi, int wc, int K, int F,
-                      int E, int M, int accumulate, cudaStream_t stream) {
-  const long long cells = (long long)F * E * M;
-  const long long blocks = (cells + RT_THREADS - 1) / RT_THREADS;
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  coeff_pairs_rt_kernel<<<(int)blocks, RT_THREADS, 0, stream>>>(
+                      void* diag, void* pr, void* pi, void* scratch, int wc,
+                      int K, int F, int E, int M, int accumulate,
+                      cudaStream_t stream) {
+  if (scratch == nullptr) return cudaErrorInvalidValue;
+  RtGeom g;
+  g.wc = wc; g.K = K; g.F = F; g.E = E; g.M = M;
+  int dev = 0, sms = 0, smem_max = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&smem_max,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  if (!rt_geometry(g, smem_max)) return cudaErrorInvalidValue;
+  const long long units = (long long)F * g.units_e * g.units_m;
+  // a chunk with no window still writes (or adds) its zero sums
+  const long long groups = wc > 0 ? (wc + g.G - 1) / g.G : 1;
+  if (units * groups * g.passes > INT_MAX || (long long)wc * K * F > INT_MAX)
+    return cudaErrorInvalidValue;
+  g.n_units = (int)units;
+  g.groups = (int)groups;
+  g.vec = E % 2 == 0 && M % 2 == 0 && g.UM >= 2
+      && reinterpret_cast<uintptr_t>(eeg) % 16 == 0
+      && reinterpret_cast<uintptr_t>(emg) % 16 == 0;
+  g.accumulate = accumulate != 0;
+  float* pe = static_cast<float*>(scratch);
+  float* pm = pe + (size_t)wc * F * E;
+  const long long n_pow = (long long)wc * F * (E + M);
+  if (n_pow > 0) {
+    const long long blocks = (n_pow + 255) / 256;
+    coeff_powers_kernel<<<(int)(blocks < 8 * sms ? blocks : 8 * sms), 256, 0,
+                          stream>>>(static_cast<const float2*>(eeg),
+                                    static_cast<const float2*>(emg), pe, pm,
+                                    wc, K, F, E, M);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  const int threads = 32 * g.warps;
+  const int smem = rt_smem_floats(g.G, K, g.UE, g.UM, g.nb) * 4;
+  auto kernel = coeff_pairs_rt_kernel;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return err;
+  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const int grid = (int)(units < resident ? units : resident);
+  kernel<<<grid, threads, smem, stream>>>(
       static_cast<const float2*>(eeg), static_cast<const float2*>(emg),
-      static_cast<const float*>(weights), static_cast<float*>(diag),
-      static_cast<float*>(pr), static_cast<float*>(pi), wc, K, F, E, M,
-      accumulate);
+      static_cast<const float*>(weights), pe, pm, static_cast<float*>(diag),
+      static_cast<float*>(pr), static_cast<float*>(pi), g);
   return cudaGetLastError();
+}
+
+bool valid(int wc, int K, int F, int E, int M) {
+  return wc >= 0 && F > 0 && E > 0 && M > 0 && K >= 2;
 }
 
 }  // namespace
 
 extern "C" int mba_coeff_pairs(const void* eeg, const void* emg,
                                const void* weights, void* diag, void* pr,
-                               void* pi, int wc, int K, int F, int E, int M,
-                               int accumulate, void* stream) {
-  if (wc < 0 || F <= 0 || E <= 0 || M <= 0 || K < 2)
-    return (int)cudaErrorInvalidValue;
+                               void* pi, void* scratch, int wc, int K, int F,
+                               int E, int M, int accumulate, void* stream) {
+  if (!valid(wc, K, F, E, M)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MBA_CASE(k)                                                       \
   case k:                                                                 \
@@ -547,8 +1095,20 @@ extern "C" int mba_coeff_pairs(const void* eeg, const void* emg,
     MBA_CASE(8) MBA_CASE(9) MBA_CASE(10) MBA_CASE(11) MBA_CASE(12)
     MBA_CASE(13) MBA_CASE(14) MBA_CASE(15) MBA_CASE(16)
     default:
-      return (int)launch_rt(eeg, emg, weights, diag, pr, pi, wc, K, F, E, M,
-                            accumulate, s);
+      return (int)launch_rt(eeg, emg, weights, diag, pr, pi, scratch, wc, K,
+                            F, E, M, accumulate, s);
   }
 #undef MBA_CASE
+}
+
+// The runtime-K instance at any K >= 2, also where a compile-time
+// instance exists: for timing and holding the two against each other
+extern "C" int mba_coeff_pairs_rt(const void* eeg, const void* emg,
+                                  const void* weights, void* diag, void* pr,
+                                  void* pi, void* scratch, int wc, int K,
+                                  int F, int E, int M, int accumulate,
+                                  void* stream) {
+  if (!valid(wc, K, F, E, M)) return (int)cudaErrorInvalidValue;
+  return (int)launch_rt(eeg, emg, weights, diag, pr, pi, scratch, wc, K, F,
+                        E, M, accumulate, static_cast<cudaStream_t>(stream));
 }

@@ -56,13 +56,29 @@
 //   stores are consecutive (the first form stored a row of M per thread,
 //   ~10× slower per 64×64 chunk).
 //
-// Taper counts: compile-time instances for 2 <= K <= 16 (nw <= 8.5), whose
-// per-taper values live in registers; above K = 16 one runtime-K instance
-// forms each per-taper value again where it is used (the EEG spectra
-// re-read through L1, the EMG spectra and powers from shared memory), by
-// the same operations in the same order, so that no array per taper is
-// held and the card takes any K whose EMG spectra fit a block's shared
-// memory (K·M·12 bytes a frequency).  It runs one lane a cell.
+// Taper counts: compile-time instances for 2 <= K <= 16 (nw <= 8.5) hold a
+// cell's per-taper values in registers, every loop unrolled to K.  Above
+// K = 16 the runtime-K instances run the same code (msc_block) with K a
+// kernel argument, in buckets: KB = 18, 20, 24 and 32 register slots, of
+// which the first KMIN = 17, 19, 21 and 25 are known to hold a taper, so
+// only the last KB − KMIN carry a k < K guard (Tapers<KMIN>).  So each
+// evaluation forms its K cross terms once, into registers, and reads the
+// EEG spectra and leave-one-out powers it formed once per (w, f, e, k)
+// from registers, as the compile-time instances do, and the EMG-max scan
+// runs two lanes a cell below E = 32 as they do.  The first form of the
+// runtime-K instance (one lane a cell, each cross term formed again per
+// ratio, the EEG spectra re-read through L1) took 3.886-3.917 ms at K = 17
+// on the main path's 64×64 chunk (W = 10); this one, bound like the
+// compile-time instances by the float32 issue rate, ~1.79 ms (both on an
+// NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
+// What limits it further is registers: the 18-slot bucket fits 128 a
+// thread (two blocks an SM), the 24- and 32-slot buckets take up to 255
+// (one block an SM).  Being the same code, the runtime-K path gives the
+// compile-time instances' floats bit for bit: mba_msc_jackknife_rt forces
+// it at any K (K <= 16 through the <16, 2> instance) for that check.
+// Beyond K = 32 msc_jackknife_any_kernel forms each per-taper value again
+// where used, for any K whose EMG spectra fit a block's shared memory
+// (K·M·12 bytes a frequency).
 //
 // Numerics: no fast math.  In float32 1 - 1e-10 == 1, so the Fisher clip
 // lets c == 1 through to log(2/0) = +inf and the z variance to
@@ -146,30 +162,48 @@ __device__ __forceinline__ float loo_ratio(float sum_cr, float sum_ci,
   return q > 1.f ? 1.f : q;                 // NaN passes through
 }
 
-// The K cross terms conj(E_k)·M_k of one (f, e, m) and their totals.
-// v points at M_0 of this (f, m); taper k is v[k].
-template <int K>
+// The taper count of an instance: K, of which the first KMIN are known at
+// compile time (KMIN = K in the compile-time instances), so that only the
+// slots from KMIN on carry a k < K guard
+template <int KMIN>
+struct Tapers {
+  int K;
+  __device__ __forceinline__ bool has(int k) const {
+    return k < KMIN || k < K;
+  }
+};
+
+// The K cross terms conj(E_k)·M_k of one (f, e, m) and their totals, in
+// arrays of KB >= K slots: KB = K in the compile-time instances, a bucket
+// of the runtime-K ones, whose loops run to KB under k < K guards and so
+// do the same operations in the same order for the K tapers there are.
+// x[k] is taper k's EEG spectrum (registers, or the staged slice in shared
+// memory); v points at M_0 of this (f, m), taper k is v[k].
+template <int KB>
 struct Cross {
-  float cr[K], ci[K];
+  float cr[KB], ci[KB];
   float sum_cr, sum_ci;
 
-  __device__ __forceinline__ Cross(const float2 (&x)[K], const float2* v) {
+  template <typename X, typename TK>
+  __device__ __forceinline__ Cross(const X& x, const float2* v, TK tk) {
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const float2 mk = v[k];
-      // conj(E)·M: re = er·mr + ei·mi, im = er·mi − ei·mr
-      cr[k] = add(mul(x[k].x, mk.x), mul(x[k].y, mk.y));
-      ci[k] = sub(mul(x[k].x, mk.y), mul(x[k].y, mk.x));
-    }
+    for (int k = 0; k < KB; ++k)
+      if (tk.has(k)) {
+        const float2 mk = v[k], xk = x[k];
+        // conj(E)·M: re = er·mr + ei·mi, im = er·mi − ei·mr
+        cr[k] = add(mul(xk.x, mk.x), mul(xk.y, mk.y));
+        ci[k] = sub(mul(xk.x, mk.y), mul(xk.y, mk.x));
+      }
     // totals from the first term on, without 0 + x_0: that would change
     // only the sign of an all-zero total, which every use squares away
     sum_cr = cr[0];
     sum_ci = ci[0];
 #pragma unroll
-    for (int k = 1; k < K; ++k) {
-      sum_cr = add(sum_cr, cr[k]);
-      sum_ci = add(sum_ci, ci[k]);
-    }
+    for (int k = 1; k < KB; ++k)
+      if (tk.has(k)) {
+        sum_cr = add(sum_cr, cr[k]);
+        sum_ci = add(sum_ci, ci[k]);
+      }
   }
 
   __device__ __forceinline__ float loo(int k, float loo_e, float loo_m)
@@ -181,57 +215,62 @@ struct Cross {
 // The coherence: the clipped mean of the K leave-one-out ratios (each
 // >= +0 or NaN, so the sum starts at the first).  All the argmax over m
 // reads.
-template <int K>
-__device__ __forceinline__ float coherence_mean(const Cross<K>& x,
-                                               const float (&loo_e)[K],
-                                               const float* loo_m) {
+template <int KB, typename LE, typename TK>
+__device__ __forceinline__ float coherence_mean(const Cross<KB>& x,
+                                               const LE& loo_e,
+                                               const float* loo_m, TK tk) {
   float sum_c = x.loo(0, loo_e[0], loo_m[0]);
 #pragma unroll
-  for (int k = 1; k < K; ++k)
-    sum_c = add(sum_c, x.loo(k, loo_e[k], loo_m[k]));
-  return clip(mul(sum_c, 1.0f / K), 0.f, 1.f);
+  for (int k = 1; k < KB; ++k)
+    if (tk.has(k)) sum_c = add(sum_c, x.loo(k, loo_e[k], loo_m[k]));
+  return clip(mul(sum_c, 1.0f / tk.K), 0.f, 1.f);
 }
 
 // The jackknife from its K terms (c_k and its Fisher z_k): the
 // coherence, the z standard error (two-pass variance) and the centre
-template <int K>
-__device__ __forceinline__ void jk_centre(const float (&c)[K],
-                                          const float (&z)[K], float& cm,
-                                          float& z_se, float& zc) {
+template <int KB, typename TK>
+__device__ __forceinline__ void jk_centre(const float (&c)[KB],
+                                          const float (&z)[KB], TK tk,
+                                          float& cm, float& z_se,
+                                          float& zc) {
   float sum_c = c[0], sum_z = z[0];         // each >= +0 or NaN
 #pragma unroll
-  for (int k = 1; k < K; ++k) {
-    sum_c = add(sum_c, c[k]);
-    sum_z = add(sum_z, z[k]);
-  }
-  cm = clip(mul(sum_c, 1.0f / K), 0.f, 1.f);
-  const float z_mean = mul(sum_z, 1.0f / K);
+  for (int k = 1; k < KB; ++k)
+    if (tk.has(k)) {
+      sum_c = add(sum_c, c[k]);
+      sum_z = add(sum_z, z[k]);
+    }
+  cm = clip(mul(sum_c, 1.0f / tk.K), 0.f, 1.f);
+  const float z_mean = mul(sum_z, 1.0f / tk.K);
   float ss = 0.f;
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const float d = sub(z[k], z_mean);
-    ss = __fmaf_rn(d, d, ss);
-  }
-  z_se = __fsqrt_rn(mul((K - 1.0f) / K, ss));
+  for (int k = 0; k < KB; ++k)
+    if (tk.has(k)) {
+      const float d = sub(z[k], z_mean);
+      ss = __fmaf_rn(d, d, ss);
+    }
+  z_se = __fsqrt_rn(mul((tk.K - 1.0f) / tk.K, ss));
   zc = fisher(cm);
 }
 
 // The whole jackknife of one (f, e, m): coherence and both CIs.  The
 // full grid and the EMG-max pick reach the CIs through this function or
 // through jackknife_pair, which forms the same floats in two lanes.
-template <int K>
-__device__ __forceinline__ void jackknife(const Cross<K>& x,
-                                          const float (&loo_e)[K],
-                                          const float* loo_m, float t_crit,
-                                          float& cm, float& cl, float& cu) {
-  float c[K], z[K];
+template <int KB, typename LE, typename TK>
+__device__ __forceinline__ void jackknife(const Cross<KB>& x,
+                                          const LE& loo_e,
+                                          const float* loo_m, TK tk,
+                                          float t_crit, float& cm,
+                                          float& cl, float& cu) {
+  float c[KB], z[KB];
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    c[k] = x.loo(k, loo_e[k], loo_m[k]);
-    z[k] = fisher(c[k]);
-  }
+  for (int k = 0; k < KB; ++k)
+    if (tk.has(k)) {
+      c[k] = x.loo(k, loo_e[k], loo_m[k]);
+      z[k] = fisher(c[k]);
+    }
   float z_se, zc;
-  jk_centre<K>(c, z, cm, z_se, zc);
+  jk_centre<KB>(c, z, tk, cm, z_se, zc);
   const float tl = tanhf(__fmaf_rn(-t_crit, z_se, zc));
   const float th = tanhf(__fmaf_rn(t_crit, z_se, zc));
   cl = nan_min(mul(tl, tl), cm);
@@ -243,35 +282,42 @@ __device__ __forceinline__ void jackknife(const Cross<K>& x,
 // operands picked by select so that both lanes run one instruction
 // stream, and the lanes swap what they formed.  Every value is the
 // float jackknife() forms, by the same functions on the same operands.
-template <int K>
-__device__ __forceinline__ void jackknife_pair(const Cross<K>& x,
-                                               const float (&loo_e)[K],
-                                               const float* loo_m,
+template <int KB, typename LE, typename TK>
+__device__ __forceinline__ void jackknife_pair(const Cross<KB>& x,
+                                               const LE& loo_e,
+                                               const float* loo_m, TK tk,
                                                float t_crit, int j,
                                                unsigned pair, float& cm,
                                                float& cl, float& cu) {
-  float c[K], z[K];
+  float c[KB], z[KB];
 #pragma unroll
-  for (int i = 0; i < (K + 1) / 2; ++i) {
+  for (int i = 0; i < (KB + 1) / 2; ++i) {
     const int k0 = 2 * i;
-    const int k1 = k0 + 1 < K ? k0 + 1 : k0;   // lane 1 idles at k = K
+    if (!tk.has(k0)) continue;                 // K is the pair's
+    // lane 1's taper, k0 + 1, or k0 itself (idling) at k0 + 1 = K; the
+    // register arrays are indexed by constants only (kn), a runtime K
+    // picks between them
+    constexpr int kn_max = KB - 1;
+    const int kn = k0 + 1 < kn_max ? k0 + 1 : kn_max;
+    const bool has1 = tk.has(k0 + 1);
+    const int k1 = has1 ? k0 + 1 : k0;
     const float ck = loo_ratio(x.sum_cr, x.sum_ci,
-                               j ? x.cr[k1] : x.cr[k0],
-                               j ? x.ci[k1] : x.ci[k0],
-                               j ? loo_e[k1] : loo_e[k0],
+                               j && has1 ? x.cr[kn] : x.cr[k0],
+                               j && has1 ? x.ci[kn] : x.ci[k0],
+                               j && has1 ? loo_e[kn] : loo_e[k0],
                                j ? loo_m[k1] : loo_m[k0]);
     const float zk = fisher(ck);
     const float oc = __shfl_xor_sync(pair, ck, 1);
     const float oz = __shfl_xor_sync(pair, zk, 1);
     c[k0] = j ? oc : ck;
     z[k0] = j ? oz : zk;
-    if (k1 != k0) {
-      c[k1] = j ? ck : oc;
-      z[k1] = j ? zk : oz;
+    if (has1) {                                // then k1 = kn = k0 + 1
+      c[kn] = j ? ck : oc;
+      z[kn] = j ? zk : oz;
     }
   }
   float z_se, zc;
-  jk_centre<K>(c, z, cm, z_se, zc);
+  jk_centre<KB>(c, z, tk, cm, z_se, zc);
   // lane 0 the lower bound's tanhf, lane 1 the upper's
   const float t = tanhf(__fmaf_rn(j ? t_crit : -t_crit, z_se, zc));
   const float ot = __shfl_xor_sync(pair, t, 1);
@@ -280,29 +326,37 @@ __device__ __forceinline__ void jackknife_pair(const Cross<K>& x,
   cu = nan_max(mul(th, th), cm);
 }
 
-// The K EEG spectra of one (f, e) and their leave-one-out powers
-template <int K>
+// The K EEG spectra of one (f, e) and their leave-one-out powers, formed
+// once per (w, f, e, k) and held in registers for the cell's whole scan
+template <int KB, typename TK>
 __device__ __forceinline__ void load_eeg(const float2* __restrict__ eeg,
                                          size_t wk, int F, int E, int f,
-                                         int e, float2 (&x)[K],
-                                         float (&loo_e)[K]) {
+                                         int e, TK tk, float2 (&x)[KB],
+                                         float (&loo_e)[KB]) {
   float sum_e = 0.f;
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    x[k] = eeg[((wk + k) * F + f) * E + e];
-    sum_e = add(sum_e, power(x[k]));
-  }
+  for (int k = 0; k < KB; ++k)
+    if (tk.has(k)) {
+      x[k] = eeg[((wk + k) * F + f) * E + e];
+      sum_e = add(sum_e, power(x[k]));
+    }
 #pragma unroll
-  for (int k = 0; k < K; ++k) loo_e[k] = sub(sum_e, power(x[k]));
+  for (int k = 0; k < KB; ++k)
+    if (tk.has(k)) loo_e[k] = sub(sum_e, power(x[k]));
 }
 
-template <int K, bool EMG_MAX>
-__global__ void __launch_bounds__(THREADS)
-msc_jackknife_kernel(const float2* __restrict__ eeg,
-                     const float2* __restrict__ emg,
-                     float* __restrict__ coh, float* __restrict__ lo,
-                     float* __restrict__ hi, int F, int E, int M, int FB,
-                     int L, float t_crit) {
+// One block's work: (window blockIdx.y, FB frequencies from blockIdx.x·FB),
+// tk.K <= KB tapers.  The compile-time instances call it with K = KB, the
+// runtime-K ones with the chunk's K and a bucket KB.
+template <int KB, bool EMG_MAX, typename TK>
+__device__ __forceinline__ void msc_block(const float2* __restrict__ eeg,
+                                          const float2* __restrict__ emg,
+                                          float* __restrict__ coh,
+                                          float* __restrict__ lo,
+                                          float* __restrict__ hi, TK tk,
+                                          int F, int E, int M, int FB,
+                                          int L, float t_crit) {
+  const int K = tk.K;
   extern __shared__ float4 smem[];
   // per frequency a row of M·K entries, m-major, K tapers together, plus
   // one of padding so that the rows of neighbouring frequencies start in
@@ -324,10 +378,10 @@ msc_jackknife_kernel(const float2* __restrict__ eeg,
   // spectra are copied.
   const int c_first = EMG_MAX ? threadIdx.x / L : warp;
   const int c_step = EMG_MAX ? blockDim.x / L : n_warps;
-  float2 x[K];
-  float loo_e[K];
+  float2 x[KB];
+  float loo_e[KB];
   if (c_first < cells)
-    load_eeg<K>(eeg, wk, F, E, f0 + c_first / E, c_first % E, x, loo_e);
+    load_eeg<KB>(eeg, wk, F, E, f0 + c_first / E, c_first % E, tk, x, loo_e);
 
   // stage the block's EMG spectra, a row of 32 m (one frequency) a warp,
   // the K tapers unrolled, by cp.async: every copy is in flight at once;
@@ -340,7 +394,8 @@ msc_jackknife_kernel(const float2* __restrict__ eeg,
     const float2* src = emg + (wk * F + f0 + fi) * M + m;
     float2* dst = ms + fi * RS + m * K;
 #pragma unroll
-    for (int k = 0; k < K; ++k) cp_async8(dst + k, src + k * taper);
+    for (int k = 0; k < KB; ++k)
+      if (tk.has(k)) cp_async8(dst + k, src + k * taper);
   }
   asm volatile("cp.async.wait_all;\n" ::);
   __syncthreads();
@@ -349,16 +404,17 @@ msc_jackknife_kernel(const float2* __restrict__ eeg,
       const float2* v = ms + fi * RS + m * K;
       float sum = power(v[0]);
 #pragma unroll
-      for (int k = 1; k < K; ++k) sum = add(sum, power(v[k]));
+      for (int k = 1; k < KB; ++k)
+        if (tk.has(k)) sum = add(sum, power(v[k]));
 #pragma unroll
-      for (int k = 0; k < K; ++k)
-        loo_m[fi * RS + m * K + k] = sub(sum, power(v[k]));
+      for (int k = 0; k < KB; ++k)
+        if (tk.has(k)) loo_m[fi * RS + m * K + k] = sub(sum, power(v[k]));
     }
   __syncthreads();
 
   for (int c = c_first; c < cells; c += c_step) {
     const int fi = c / E, e = c - fi * E;
-    if (c != c_first) load_eeg<K>(eeg, wk, F, E, f0 + fi, e, x, loo_e);
+    if (c != c_first) load_eeg<KB>(eeg, wk, F, E, f0 + fi, e, tk, x, loo_e);
     const float2* ms_f = ms + fi * RS;
     const float* lm_f = loo_m + fi * RS;
     if (EMG_MAX) {
@@ -370,12 +426,12 @@ msc_jackknife_kernel(const float2* __restrict__ eeg,
       float best_c = -INFINITY;
       int best_m = -1;
       if (j == 0) {
-        best_c = coherence_mean<K>(Cross<K>(x, ms_f), loo_e, lm_f);
+        best_c = coherence_mean<KB>(Cross<KB>(x, ms_f, tk), loo_e, lm_f, tk);
         best_m = 0;
       }
       for (int m = j == 0 ? L : j; m < M; m += L) {
-        const float cm = coherence_mean<K>(Cross<K>(x, ms_f + m * K),
-                                           loo_e, lm_f + m * K);
+        const float cm = coherence_mean<KB>(Cross<KB>(x, ms_f + m * K, tk),
+                                            loo_e, lm_f + m * K, tk);
         if (cm > best_c) {
           best_c = cm;
           best_m = m;
@@ -395,12 +451,13 @@ msc_jackknife_kernel(const float2* __restrict__ eeg,
         best_m = take_b ? bm : am;
       }
       float cm, cl, cu;
-      const Cross<K> pick(x, ms_f + best_m * K);
+      const Cross<KB> pick(x, ms_f + best_m * K, tk);
       if (L == 2)
-        jackknife_pair<K>(pick, loo_e, lm_f + best_m * K, t_crit, j,
-                          3u << (lane & 30), cm, cl, cu);
+        jackknife_pair<KB>(pick, loo_e, lm_f + best_m * K, tk, t_crit, j,
+                           3u << (lane & 30), cm, cl, cu);
       else
-        jackknife<K>(pick, loo_e, lm_f + best_m * K, t_crit, cm, cl, cu);
+        jackknife<KB>(pick, loo_e, lm_f + best_m * K, tk, t_crit, cm, cl,
+                      cu);
       if (j == 0) {
         const size_t cell = ((size_t)w * F + f0) * E + c;
         coh[cell] = cm;                     // the pick's value, bit for bit
@@ -412,8 +469,8 @@ msc_jackknife_kernel(const float2* __restrict__ eeg,
       const size_t row = (((size_t)w * F + f0) * E + c) * M;
       for (int m = lane; m < M; m += 32) {
         float cm, cl, cu;
-        jackknife<K>(Cross<K>(x, ms_f + m * K), loo_e, lm_f + m * K,
-                     t_crit, cm, cl, cu);
+        jackknife<KB>(Cross<KB>(x, ms_f + m * K, tk), loo_e, lm_f + m * K, tk,
+                      t_crit, cm, cl, cu);
         coh[row + m] = cm;
         lo[row + m] = cl;
         hi[row + m] = cu;
@@ -422,7 +479,34 @@ msc_jackknife_kernel(const float2* __restrict__ eeg,
   }
 }
 
-// ---- any K: the runtime-K instance -------------------------------------
+// The compile-time instances: K tapers, every loop unrolled to K
+template <int K, bool EMG_MAX>
+__global__ void __launch_bounds__(THREADS)
+msc_jackknife_kernel(const float2* __restrict__ eeg,
+                     const float2* __restrict__ emg,
+                     float* __restrict__ coh, float* __restrict__ lo,
+                     float* __restrict__ hi, int F, int E, int M, int FB,
+                     int L, float t_crit) {
+  msc_block<K, EMG_MAX>(eeg, emg, coh, lo, hi, Tapers<K>{K}, F, E, M, FB, L,
+                        t_crit);
+}
+
+// The runtime-K instances: KMIN <= K <= KB tapers, the loops unrolled to
+// the bucket KB, the slots from KMIN on under k < K guards; the same code
+// as the compile-time instances, so that the two agree bit for bit where
+// both run (the <16, 2> instance serves every K <= 16 for that check)
+template <int KB, int KMIN, bool EMG_MAX>
+__global__ void __launch_bounds__(THREADS, KB <= 20 ? 2 : 1)
+msc_jackknife_rt_kernel(const float2* __restrict__ eeg,
+                        const float2* __restrict__ emg,
+                        float* __restrict__ coh, float* __restrict__ lo,
+                        float* __restrict__ hi, int K, int F, int E, int M,
+                        int FB, int L, float t_crit) {
+  msc_block<KB, EMG_MAX>(eeg, emg, coh, lo, hi, Tapers<KMIN>{K}, F, E, M,
+                         FB, L, t_crit);
+}
+
+// ---- beyond the largest bucket: any K --------------------------------
 
 // One (w, f, e) cell's EEG spectra, re-read where used: taper k at
 // x[k · xs]; sum_e their total power as load_eeg forms it
@@ -518,7 +602,7 @@ __device__ __forceinline__ void jackknife_rt(const CellRT& c,
 
 template <bool EMG_MAX>
 __global__ void __launch_bounds__(THREADS)
-msc_jackknife_rt_kernel(const float2* __restrict__ eeg,
+msc_jackknife_any_kernel(const float2* __restrict__ eeg,
                         const float2* __restrict__ emg,
                         float* __restrict__ coh, float* __restrict__ lo,
                         float* __restrict__ hi, int K, int F, int E, int M,
@@ -595,14 +679,19 @@ msc_jackknife_rt_kernel(const float2* __restrict__ eeg,
   }
 }
 
+// Shared memory of a block of FB frequencies: the EMG spectra and their
+// leave-one-out powers
+__host__ size_t block_smem(int K, int M, int FB) {
+  return (size_t)FB * ((size_t)K * M + 1) * (sizeof(float2) + sizeof(float));
+}
+
 // FB frequencies a block: ~cells (f, e) cells, within the shared memory a
-// block may hold and the F frequencies there are; 0 where one frequency's
-// EMG spectra do not fit
+// block may hold and the F frequencies there are; 0 where one frequency
+// does not fit
 __host__ int frequencies_a_block(int K, int F, int E, int M, int cells,
                                  int smem_max) {
-  const size_t per_f = ((size_t)K * M + 1) * (sizeof(float2) + sizeof(float));
   int FB = E >= cells ? 1 : cells / E;
-  FB = (int)((size_t)FB * per_f > (size_t)smem_max ? smem_max / per_f : FB);
+  while (FB > 0 && block_smem(K, M, FB) > (size_t)smem_max) --FB;
   return FB < F ? FB : F;
 }
 
@@ -616,17 +705,16 @@ __host__ cudaError_t optin_smem(int& smem_max) {
 }
 
 template <bool EMG_MAX>
-cudaError_t launch_rt(const float2* eeg, const float2* emg, float* coh,
-                      float* lo, float* hi, int W, int K, int F, int E,
-                      int M, float t_crit, cudaStream_t stream) {
-  auto kernel = msc_jackknife_rt_kernel<EMG_MAX>;
+cudaError_t launch_any(const float2* eeg, const float2* emg, float* coh,
+                       float* lo, float* hi, int W, int K, int F, int E,
+                       int M, float t_crit, cudaStream_t stream) {
+  auto kernel = msc_jackknife_any_kernel<EMG_MAX>;
   int smem_max = 0;
   cudaError_t err = optin_smem(smem_max);
   if (err != cudaSuccess) return err;
   const int FB = frequencies_a_block(K, F, E, M, THREADS, smem_max);
   if (FB < 1) return cudaErrorInvalidValue;     // K·M too large to stage
-  const size_t smem =
-      FB * ((size_t)K * M + 1) * (sizeof(float2) + sizeof(float));
+  const size_t smem = block_smem(K, M, FB);
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -638,11 +726,12 @@ cudaError_t launch_rt(const float2* eeg, const float2* emg, float* coh,
   return cudaGetLastError();
 }
 
-template <int K, bool EMG_MAX>
+// One launch of the compile-time instance (KMIN = KB = K) or of the
+// runtime-K one of bucket KB (KMIN < KB, KMIN <= K <= KB)
+template <int KB, int KMIN, bool EMG_MAX>
 cudaError_t launch(const float2* eeg, const float2* emg, float* coh,
-                   float* lo, float* hi, int W, int F, int E, int M,
+                   float* lo, float* hi, int W, int K, int F, int E, int M,
                    float t_crit, cudaStream_t stream) {
-  auto kernel = msc_jackknife_kernel<K, EMG_MAX>;
   int smem_max = 0;
   cudaError_t err = optin_smem(smem_max);
   if (err != cudaSuccess) return err;
@@ -652,31 +741,77 @@ cudaError_t launch(const float2* eeg, const float2* emg, float* coh,
   const int L = EMG_MAX && E < 32 ? 2 : 1;
   const int FB = frequencies_a_block(K, F, E, M, THREADS / L, smem_max);
   if (FB < 1) return cudaErrorInvalidValue;     // M too large to stage
-  const size_t smem =
-      FB * ((size_t)K * M + 1) * (sizeof(float2) + sizeof(float));
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
+  const size_t smem = block_smem(K, M, FB);
   const dim3 grid((F + FB - 1) / FB, W);
-  kernel<<<grid, THREADS, smem, stream>>>(eeg, emg, coh, lo, hi, F, E, M,
-                                          FB, L, t_crit);
+  if constexpr (KMIN < KB) {
+    auto kernel = msc_jackknife_rt_kernel<KB, KMIN, EMG_MAX>;
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return err;
+    }
+    kernel<<<grid, THREADS, smem, stream>>>(eeg, emg, coh, lo, hi, K, F, E,
+                                            M, FB, L, t_crit);
+  } else {
+    auto kernel = msc_jackknife_kernel<KB, EMG_MAX>;
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return err;
+    }
+    kernel<<<grid, THREADS, smem, stream>>>(eeg, emg, coh, lo, hi, F, E, M,
+                                            FB, L, t_crit);
+  }
   return cudaGetLastError();
 }
 
-template <int K>
+template <int KB, int KMIN>
 cudaError_t launch_k(const void* eeg, const void* emg, void* coh, void* lo,
-                     void* hi, int W, int F, int E, int M, float t_crit,
-                     int emg_max, cudaStream_t stream) {
+                     void* hi, int W, int K, int F, int E, int M,
+                     float t_crit, int emg_max, cudaStream_t stream) {
   const float2* e = static_cast<const float2*>(eeg);
   const float2* m = static_cast<const float2*>(emg);
   float* c = static_cast<float*>(coh);
   float* l = static_cast<float*>(lo);
   float* h = static_cast<float*>(hi);
   return emg_max
-      ? launch<K, true>(e, m, c, l, h, W, F, E, M, t_crit, stream)
-      : launch<K, false>(e, m, c, l, h, W, F, E, M, t_crit, stream);
+      ? launch<KB, KMIN, true>(e, m, c, l, h, W, K, F, E, M, t_crit, stream)
+      : launch<KB, KMIN, false>(e, m, c, l, h, W, K, F, E, M, t_crit,
+                                stream);
+}
+
+// The runtime-K path: the bucket that holds K (K <= 16 only when forced,
+// for the bit-for-bit check), else (K > 32) msc_jackknife_any_kernel
+int launch_runtime_k(const void* eeg, const void* emg, void* coh, void* lo,
+                     void* hi, int W, int K, int F, int E, int M,
+                     float t_crit, int emg_max, cudaStream_t s) {
+  if (K <= 16)
+    return (int)launch_k<16, 2>(eeg, emg, coh, lo, hi, W, K, F, E, M,
+                                t_crit, emg_max, s);
+  if (K <= 18)
+    return (int)launch_k<18, 17>(eeg, emg, coh, lo, hi, W, K, F, E, M,
+                                 t_crit, emg_max, s);
+  if (K <= 20)
+    return (int)launch_k<20, 19>(eeg, emg, coh, lo, hi, W, K, F, E, M,
+                                 t_crit, emg_max, s);
+  if (K <= 24)
+    return (int)launch_k<24, 21>(eeg, emg, coh, lo, hi, W, K, F, E, M,
+                                 t_crit, emg_max, s);
+  if (K <= 32)
+    return (int)launch_k<32, 25>(eeg, emg, coh, lo, hi, W, K, F, E, M,
+                                 t_crit, emg_max, s);
+  const float2* e = static_cast<const float2*>(eeg);
+  const float2* m = static_cast<const float2*>(emg);
+  float* c = static_cast<float*>(coh);
+  float* l = static_cast<float*>(lo);
+  float* h = static_cast<float*>(hi);
+  return (int)(emg_max
+      ? launch_any<true>(e, m, c, l, h, W, K, F, E, M, t_crit, s)
+      : launch_any<false>(e, m, c, l, h, W, K, F, E, M, t_crit, s));
+}
+
+bool valid(int W, int K, int F, int E, int M) {
+  return W > 0 && W <= 65535 && F > 0 && E > 0 && M > 0 && K >= 2;
 }
 
 }  // namespace
@@ -685,28 +820,33 @@ extern "C" int mba_msc_jackknife(const void* eeg, const void* emg,
                                  void* coh, void* lo, void* hi, int W,
                                  int K, int F, int E, int M, float t_crit,
                                  int emg_max, void* stream) {
-  if (W <= 0 || W > 65535 || F <= 0 || E <= 0 || M <= 0 || K < 2)
-    return (int)cudaErrorInvalidValue;
+  if (!valid(W, K, F, E, M)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MBA_CASE(k)                                                       \
   case k:                                                                 \
-    return launch_k<k>(eeg, emg, coh, lo, hi, W, F, E, M, t_crit, emg_max, \
-                       s);
+    return (int)launch_k<k, k>(eeg, emg, coh, lo, hi, W, K, F, E, M,      \
+                               t_crit, emg_max, s);
   switch (K) {
     MBA_CASE(2) MBA_CASE(3) MBA_CASE(4) MBA_CASE(5) MBA_CASE(6) MBA_CASE(7)
     MBA_CASE(8) MBA_CASE(9) MBA_CASE(10) MBA_CASE(11) MBA_CASE(12)
     MBA_CASE(13) MBA_CASE(14) MBA_CASE(15) MBA_CASE(16)
-    default: break;
+    default:
+      return launch_runtime_k(eeg, emg, coh, lo, hi, W, K, F, E, M, t_crit,
+                              emg_max, s);
   }
 #undef MBA_CASE
-  const float2* e = static_cast<const float2*>(eeg);
-  const float2* m = static_cast<const float2*>(emg);
-  float* c = static_cast<float*>(coh);
-  float* l = static_cast<float*>(lo);
-  float* h = static_cast<float*>(hi);
-  return (int)(emg_max
-      ? launch_rt<true>(e, m, c, l, h, W, K, F, E, M, t_crit, s)
-      : launch_rt<false>(e, m, c, l, h, W, K, F, E, M, t_crit, s));
+}
+
+// The runtime-K path at any K >= 2, also where a compile-time instance
+// exists: for holding the two to each other bit for bit
+extern "C" int mba_msc_jackknife_rt(const void* eeg, const void* emg,
+                                    void* coh, void* lo, void* hi, int W,
+                                    int K, int F, int E, int M,
+                                    float t_crit, int emg_max,
+                                    void* stream) {
+  if (!valid(W, K, F, E, M)) return (int)cudaErrorInvalidValue;
+  return launch_runtime_k(eeg, emg, coh, lo, hi, W, K, F, E, M, t_crit,
+                          emg_max, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* mba_error_string(int code) {

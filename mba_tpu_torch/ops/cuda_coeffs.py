@@ -16,7 +16,8 @@ below, the chunk body of the JAX package's scan engine
 :func:`coeff_pairs` is the wrapper: CPU tensors run
 :func:`coeff_pairs_plain` (any K >= 2, as the JAX package's scan engine),
 CUDA tensors launch the kernel (any K >= 2: compile-time instances up to
-K = 16, a runtime-K instance above) or raise.  Given
+K = 16, a runtime-K instance above, with its first pass over the chunk's
+channel powers into a scratch tensor the wrapper allocates) or raise.  Given
 ``out=(diag, pr, pi)``, both add the chunk's sums to it in place, so a
 caller sums its chunks without allocating or adding per chunk.
 ``coeff_pairs.launches`` counts kernel launches.
@@ -119,6 +120,11 @@ def _out_shapes(eeg_spec, emg_spec):
     return (nF, N), (P2, nF, N), (P2, nF, N)
 
 
+# the largest K with a compile-time instance (``csrc/coeff_pairs.cu``'s
+# MBA_CASE lines); above it ``mba_coeff_pairs`` runs the runtime-K one
+COMPILE_TIME_K_MAX = 16
+
+
 def _check_out(out, eeg_spec, emg_spec) -> None:
     if len(out) != 3:
         raise ValueError(f"out must be (diag, pr, pi), got {len(out)} "
@@ -135,6 +141,39 @@ def _check_out(out, eeg_spec, emg_spec) -> None:
                              f"{eeg_spec.device}")
         if not x.is_contiguous():
             raise ValueError(f"out {name} must be contiguous")
+
+
+def _launch(entry: str, eeg_spec, emg_spec, weights, out):
+    """One launch of the C entry ``entry`` on CUDA spectra; counted in
+    ``coeff_pairs.launches``."""
+    wc, K, nF, nE = eeg_spec.shape
+    nM = emg_spec.shape[-1]
+    accumulate = out is not None
+    if out is None:
+        out = tuple(torch.empty(s, dtype=torch.float32,
+                                device=eeg_spec.device)
+                    for s in _out_shapes(eeg_spec, emg_spec))
+    if nF * nE * nM == 0:
+        return out
+    diag, pr, pi = out
+    # the runtime-K instance's first pass writes each window's channel
+    # powers here; the compile-time instances take none
+    scratch = None
+    if entry == "mba_coeff_pairs_rt" or K > COMPILE_TIME_K_MAX:
+        scratch = torch.empty(max(1, wc * nF * (nE + nM)),
+                              dtype=torch.float32, device=eeg_spec.device)
+    lib = _build.load_library()
+    with torch.cuda.device(eeg_spec.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(lib, entry)(
+            torch.view_as_real(eeg_spec).data_ptr(),
+            torch.view_as_real(emg_spec).data_ptr(), weights.data_ptr(),
+            diag.data_ptr(), pr.data_ptr(), pi.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            wc, K, nF, nE, nM, int(accumulate), stream)
+    _build.check_launch(lib, code, entry)
+    coeff_pairs.launches += 1
+    return out
 
 
 def coeff_pairs(eeg_spec: torch.Tensor, emg_spec: torch.Tensor,
@@ -155,27 +194,23 @@ def coeff_pairs(eeg_spec: torch.Tensor, emg_spec: torch.Tensor,
         return coeff_pairs_plain(eeg_spec, emg_spec, weights, out=out)
     if eeg_spec.device.type != "cuda":
         raise ValueError(f"unsupported device {eeg_spec.device}")
-    wc, K, nF, nE = eeg_spec.shape
-    nM = emg_spec.shape[-1]
-    accumulate = out is not None
-    if out is None:
-        out = tuple(torch.empty(s, dtype=torch.float32,
-                                device=eeg_spec.device)
-                    for s in _out_shapes(eeg_spec, emg_spec))
-    if nF * nE * nM == 0:
-        return out
-    diag, pr, pi = out
-    lib = _build.load_library()
-    with torch.cuda.device(eeg_spec.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.mba_coeff_pairs(
-            torch.view_as_real(eeg_spec).data_ptr(),
-            torch.view_as_real(emg_spec).data_ptr(), weights.data_ptr(),
-            diag.data_ptr(), pr.data_ptr(), pi.data_ptr(),
-            wc, K, nF, nE, nM, int(accumulate), stream)
-    _build.check_launch(lib, code, "mba_coeff_pairs")
-    coeff_pairs.launches += 1
-    return out
+    return _launch("mba_coeff_pairs", eeg_spec, emg_spec, weights, out)
+
+
+def coeff_pairs_runtime_k(eeg_spec: torch.Tensor, emg_spec: torch.Tensor,
+                          weights: torch.Tensor, out=None):
+    """The kernel's runtime-K instance at any K >= 2, also where
+    :func:`coeff_pairs` takes a compile-time one: for timing the two
+    against each other on the card.  CUDA tensors only; arguments and
+    result as :func:`coeff_pairs`; the launch counts in
+    ``coeff_pairs.launches``."""
+    _check(eeg_spec, emg_spec, weights)
+    if out is not None:
+        _check_out(out, eeg_spec, emg_spec)
+    if eeg_spec.device.type != "cuda":
+        raise ValueError(f"the runtime-K instance runs on the card only, "
+                         f"got {eeg_spec.device}")
+    return _launch("mba_coeff_pairs_rt", eeg_spec, emg_spec, weights, out)
 
 
 coeff_pairs.launches = 0

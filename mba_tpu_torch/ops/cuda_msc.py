@@ -12,7 +12,8 @@ device memory; the plain version below materialises them.
 :func:`msc_jackknife` is the wrapper: for CPU tensors it runs
 :func:`msc_jackknife_plain`, for CUDA tensors it launches the kernel or
 raises.  The kernel takes any K >= 2: compile-time instances up to
-K = 16 tapers, a runtime-K instance above.
+K = 16 tapers, runtime-K instances above (taper buckets of 18, 20, 24
+and 32, then one for any K).
 ``msc_jackknife.launches`` counts kernel launches.
 """
 from __future__ import annotations
@@ -136,6 +137,30 @@ def _check_spectra(eeg_fft: torch.Tensor, emg_fft: torch.Tensor) -> None:
         raise ValueError("eeg_fft and emg_fft lie on different devices")
 
 
+def _launch(entry: str, eeg_fft, emg_fft, t_crit, emg_max) -> dict:
+    """One launch of the C entry ``entry`` on CUDA spectra; counted in
+    ``msc_jackknife.launches``."""
+    W, K, F, E = eeg_fft.shape
+    M = emg_fft.shape[-1]
+    if K < 2:
+        raise ValueError(f"the jackknife needs K >= 2 tapers, got {K}")
+    out_shape = (W, F, E) if emg_max else (W, F, E, M)
+    outs = [torch.empty(out_shape, dtype=torch.float32,
+                        device=eeg_fft.device) for _ in range(3)]
+    if W * F * E == 0 or M == 0:
+        return dict(zip(("coherence", "ci_lower", "ci_upper"), outs))
+    lib = _build.load_library()
+    with torch.cuda.device(eeg_fft.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(lib, entry)(
+            eeg_fft.data_ptr(), emg_fft.data_ptr(), outs[0].data_ptr(),
+            outs[1].data_ptr(), outs[2].data_ptr(), W, K, F, E, M,
+            float(t_crit), int(bool(emg_max)), stream)
+    _build.check_launch(lib, code, entry)
+    msc_jackknife.launches += 1
+    return dict(zip(("coherence", "ci_lower", "ci_upper"), outs))
+
+
 def msc_jackknife(eeg_fft: torch.Tensor, emg_fft: torch.Tensor,
                   t_crit: float, emg_max: bool = True,
                   inv_fs_n: float = 1.0) -> dict:
@@ -150,25 +175,21 @@ def msc_jackknife(eeg_fft: torch.Tensor, emg_fft: torch.Tensor,
                                    inv_fs_n)
     if eeg_fft.device.type != "cuda":
         raise ValueError(f"unsupported device {eeg_fft.device}")
-    W, K, F, E = eeg_fft.shape
-    M = emg_fft.shape[-1]
-    if K < 2:
-        raise ValueError(f"the jackknife needs K >= 2 tapers, got {K}")
-    out_shape = (W, F, E) if emg_max else (W, F, E, M)
-    outs = [torch.empty(out_shape, dtype=torch.float32,
-                        device=eeg_fft.device) for _ in range(3)]
-    if W * F * E == 0 or M == 0:
-        return dict(zip(("coherence", "ci_lower", "ci_upper"), outs))
-    lib = _build.load_library()
-    with torch.cuda.device(eeg_fft.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.mba_msc_jackknife(
-            eeg_fft.data_ptr(), emg_fft.data_ptr(), outs[0].data_ptr(),
-            outs[1].data_ptr(), outs[2].data_ptr(), W, K, F, E, M,
-            float(t_crit), int(bool(emg_max)), stream)
-    _build.check_launch(lib, code, "mba_msc_jackknife")
-    msc_jackknife.launches += 1
-    return dict(zip(("coherence", "ci_lower", "ci_upper"), outs))
+    return _launch("mba_msc_jackknife", eeg_fft, emg_fft, t_crit, emg_max)
+
+
+def msc_jackknife_runtime_k(eeg_fft: torch.Tensor, emg_fft: torch.Tensor,
+                            t_crit: float, emg_max: bool = True) -> dict:
+    """The kernel's runtime-K path at any K >= 2, also where
+    :func:`msc_jackknife` takes a compile-time instance (K <= 16): for
+    holding the two paths to each other, bit for bit, on the card.  CUDA
+    tensors only; the launch counts in ``msc_jackknife.launches``."""
+    _check_spectra(eeg_fft, emg_fft)
+    if eeg_fft.device.type != "cuda":
+        raise ValueError(f"the runtime-K path runs on the card only, got "
+                         f"{eeg_fft.device}")
+    return _launch("mba_msc_jackknife_rt", eeg_fft, emg_fft, t_crit,
+                   emg_max)
 
 
 msc_jackknife.launches = 0

@@ -99,6 +99,7 @@ def test_msc_chunk_matches_xla_kernel(use_jackknife, emg_max):
     (256, 3, True, 8, 4),      # test_ops_coherence.py:185
     (128, 2, True, 4, 3),      # F = 65: not a multiple of the Pallas block
     (256, 3, False, 6, 3),     # full-grid mode
+    (256, 9, True, 4, 3),      # K = 17: the card's runtime-K instance
 ])
 def test_msc_chunk_matches_pallas_interpret(ws, nw, emg_max, nE, nM):
     eegf, emgf = _frames(1, 2, ws, nE, nM)
@@ -255,10 +256,12 @@ class TestMultitaperMsc:
         assert got["timings"]["upload_bytes"] == \
             n_in * (2 if input_transfer else 4)
 
-    @pytest.mark.parametrize("nw", [5, 8])
+    @pytest.mark.parametrize("nw", [5, 8, 9])
     def test_jackknife_at_many_tapers_matches_jax(self, nw):
-        """nw = 5 and 8 (K = 9 and 15 tapers): the jackknife has no taper
-        limit on either device."""
+        """nw = 5, 8 and 9 (K = 9, 15 and 17 tapers; on the card K = 17
+        takes B1's runtime-K instance): the jackknife has no taper limit
+        on either device.  Coherence within 5e-5, the CIs within 5e-5 +
+        2e-4·|ref| (float32 Fisher z near 1)."""
         eeg, emg = coupled_signals()
         kw = dict(window_length_sec=1.0, nw=nw, aggregate_emg_max=True)
         ref = JC.multitaper_msc(eeg, emg, 256, **kw)

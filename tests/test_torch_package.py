@@ -254,6 +254,45 @@ def test_null_tile_split_forms_match_the_source():
             assert src.count(old) == 1, (form, old)
 
 
+def test_coeff_split_forms_match_the_source():
+    """``chip_probe.py coeff-split`` times edited copies of B3's source:
+    each edit's old text must occur in it exactly once, or the probe would
+    time a form other than the one it names."""
+    sys.path.insert(0, str(REPO))
+    import chip_probe
+    src = (_build.CSRC_DIR / "coeff_pairs.cu").read_text()
+    assert chip_probe.COEFF_FORMS["as_is"] == []
+    for form, edits in chip_probe.COEFF_FORMS.items():
+        for old, _ in edits:
+            assert src.count(old) == 1, (form, old)
+
+
+def test_coeff_split_reads_the_runtime_k_kernels_registers():
+    """``chip_probe.py coeff-split`` reports, per form, the registers and
+    spills ptxas gives ``coeff_pairs_rt_kernel`` and no other entry."""
+    sys.path.insert(0, str(REPO))
+    import chip_probe
+    text = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_119coeff_powers_kernelEPK6float2S2_PfS3_iiiii' "
+        "for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 32 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_121coeff_pairs_rt_kernelEPK6float2S2_PKfS4_S4_"
+        "PfS5_S5_NS_6RtGeomE' for 'sm_90a'",
+        "    24 bytes stack frame, 4 bytes spill stores, 20 bytes spill "
+        "loads",
+        "ptxas info    : Used 128 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_119coeff_pairs_kernelILi5ELb1EEEvPK6float2' "
+        "for 'sm_90a'",
+        "ptxas info    : Used 96 registers, used 1 barriers"])
+    assert chip_probe._rt_ptxas(text) == {
+        "spill_stores": 4, "spill_loads": 20, "registers": 128}
+    assert chip_probe._rt_ptxas("") == {}
+
+
 _FAKE_NVCC = """#!/bin/sh
 # stands in for nvcc: writes its -o target, or fails on request
 out=""; prev=""
@@ -411,14 +450,16 @@ def test_msc_kernel_matches_plain_on_card(cuda, ws, nw, nE, nM):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("nw,nE,nM", [(5, 8, 6), (5, 33, 7), (8.5, 8, 6),
-                                      (9, 8, 6), (11, 33, 7)])
+                                      (9, 8, 6), (11, 33, 7), (13.5, 8, 6),
+                                      (9, 3, 5)])
 def test_msc_kernel_at_many_tapers_on_card(cuda, nw, nE, nM):
-    """K = 9 and 16 (compile-time instances), 17 and 21 (the runtime-K
-    instance) in both EMG modes against the plain version, at the
+    """K = 9 and 16 (compile-time instances), 17, 21 and 25 (the runtime-K
+    instances of buckets 20, 24 and 32; K = 17 also at an odd narrow
+    montage, 3×5) in both EMG modes against the plain version, at the
     tolerances of ``test_msc_kernel_matches_plain_on_card``; the EMG-max
     value is the full grid's max."""
     e, m = _spectra(4, 3, 256, nE, nM, device=cuda, nw=nw)
-    assert e.shape[1] == 2 * nw - 1
+    assert e.shape[1] == {5: 9, 8.5: 16, 9: 17, 11: 21, 13.5: 25}[nw]
     before = cuda_msc.msc_jackknife.launches
     kf = _np(cuda_msc.msc_jackknife(e, m, 2.1, emg_max=False))
     km = _np(cuda_msc.msc_jackknife(e, m, 2.1, emg_max=True))
@@ -434,6 +475,26 @@ def test_msc_kernel_at_many_tapers_on_card(cuda, nw, nE, nM):
     idx, at_pick = _pick_and_take(kf, km)
     for key in KEYS:
         np.testing.assert_array_equal(km[key], at_pick[key], err_msg=key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nw", [3, 8.5])
+@pytest.mark.parametrize("nE,nM", [(64, 64), (11, 64), (3, 5)])
+def test_msc_runtime_k_path_equals_compile_time_on_card(cuda, nw, nE, nM):
+    """K = 5 and 16: the runtime-K path (``msc_jackknife_runtime_k``, the
+    instances that serve K > 16) gives the compile-time instance's floats
+    bit for bit in both EMG modes, at 64×64, at the task CMC's 11×64 and
+    at 3×5 (two lanes a cell in the EMG-max scan), NaN where NaN."""
+    e, m = _spectra(5, 2, 256, nE, nM, device=cuda, nw=nw)
+    assert e.shape[1] == {3: 5, 8.5: 16}[nw]
+    before = cuda_msc.msc_jackknife.launches
+    for emg_max in (True, False):
+        a = cuda_msc.msc_jackknife(e, m, 2.5, emg_max=emg_max)
+        b = cuda_msc.msc_jackknife_runtime_k(e, m, 2.5, emg_max=emg_max)
+        for key in KEYS:
+            assert torch.equal(a[key].isnan(), b[key].isnan()), key
+            assert torch.equal(a[key].nan_to_num(), b[key].nan_to_num()), key
+    assert cuda_msc.msc_jackknife.launches == before + 4
 
 
 @pytest.mark.cuda
@@ -770,6 +831,10 @@ def test_coeff_kernel_matches_plain_on_card(cuda, K, wc, nF, nE, nM):
     (16, 33, 2, 6, 64, True),     # the largest compile-time instance
     (17, 10, 3, 5, 37, False),    # the runtime-K instance
     (21, 9, 2, 3, 70, True),
+    (17, 32, 2, 64, 64, True),    # the main path's tile, accumulating
+    (25, 9, 2, 5, 37, False),     # 7 taper blocks: 28 tiles, two passes
+    (25, 33, 3, 3, 5, True),      # an odd narrow montage: 16 EEG a unit
+    (40, 9, 2, 3, 10, True),      # 55 tiles, four passes
 ])
 def test_coeff_kernel_at_many_tapers_on_card(cuda, K, wc, nF, nE, nM,
                                              accumulate):
@@ -786,6 +851,38 @@ def test_coeff_kernel_at_many_tapers_on_card(cuda, K, wc, nF, nE, nM,
     torch.cuda.synchronize()
     assert cuda_coeffs.coeff_pairs.launches == before + 1
     wsum = float(w.sum())
+    for a, b in zip(got, ref):
+        assert bool(torch.isfinite(a).all())
+        np.testing.assert_allclose(a.cpu().numpy() / wsum,
+                                   b.cpu().numpy() / wsum,
+                                   rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,wc,nF,nE,nM,accumulate", [
+    (2, 5, 3, 4, 4, False),       # one tile: a one-warp block
+    (5, 9, 3, 5, 70, True),
+    (12, 9, 3, 8, 40, True),
+    (16, 33, 2, 6, 64, False),
+    (17, 0, 2, 3, 5, True),       # no window: out + zero sums
+])
+def test_coeff_runtime_k_instance_matches_plain_on_card(cuda, K, wc, nF, nE,
+                                                        nM, accumulate):
+    """The runtime-K instance forced at any K (``coeff_pairs_runtime_k``,
+    as ``chip_probe.py coeff-dispatch`` times it beside the compile-time
+    instances) against the plain version at the tolerance of
+    ``test_coeff_kernel_matches_plain_on_card``, plain and ``out=``."""
+    e, m, w = _coeff_spectra(K + wc, wc, K, nF, nE, nM, cuda)
+    ref = cuda_coeffs.coeff_pairs_plain(e, m, w)
+    out = None
+    if accumulate:
+        out = tuple(torch.full_like(x, 0.25) for x in ref)
+        ref = tuple(x + 0.25 for x in ref)
+    before = cuda_coeffs.coeff_pairs.launches
+    got = cuda_coeffs.coeff_pairs_runtime_k(e, m, w, out=out)
+    torch.cuda.synchronize()
+    assert cuda_coeffs.coeff_pairs.launches == before + 1
+    wsum = max(float(w.sum()), 1.0)
     for a, b in zip(got, ref):
         assert bool(torch.isfinite(a).all())
         np.testing.assert_allclose(a.cpu().numpy() / wsum,
@@ -819,10 +916,12 @@ def test_coeff_kernel_accumulates_two_chunks_on_card(cuda, K, nE, nM):
 
 
 @pytest.mark.cuda
-def test_coeff_kernel_zero_weight_and_nan(cuda):
+@pytest.mark.parametrize("K", [3, 17])
+def test_coeff_kernel_zero_weight_and_nan(cuda, K):
     """A zero-weight window adds exact zeros; a NaN spectrum in one makes
-    that cell's sums NaN, as the plain version (no fmaxf clamp)."""
-    e, m, w = _coeff_spectra(1, 4, 3, 6, 2, 3, "cpu")
+    that cell's sums NaN, as the plain version (no fmaxf clamp); K = 3
+    (a compile-time instance) and 17 (the runtime-K one)."""
+    e, m, w = _coeff_spectra(1, 4, K, 6, 2, 3, "cpu")
     w[:] = torch.tensor([1.0, 0.0, 2.0, 0.5])
     e[1, 0, 4, 1] = complex(float("nan"), 0.0)
     got = [x.cpu() for x in cuda_coeffs.coeff_pairs(

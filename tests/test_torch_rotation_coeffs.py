@@ -112,11 +112,13 @@ def test_pallas_engine_takes_any_taper_count_on_cpu():
 
 
 @pytest.mark.parametrize("nw,case", [(8, "weights_and_padding"),
-                                     (8, "full_band")])
+                                     (8, "full_band"),
+                                     (9, "weights_and_padding")])
 def test_pallas_engine_plain_pass_at_nw8_matches_jax(nw, case):
     """nw = 8, K = 15 tapers (105 pairs; on the card one of kernel B3's
-    compile-time instances above K = 8): on the CPU the plain pair pass,
-    against the JAX scan engine."""
+    compile-time instances above K = 8), and nw = 9, K = 17 (136 pairs;
+    on the card B3's runtime-K instance): on the CPU the plain pair pass,
+    against the JAX scan engine, within RTOL / ATOL."""
     K = filtered_tapers(256, nw, 0.9).shape[0]
     assert K == 2 * nw - 1
     eeg, emg, kw = _case_inputs(case)
