@@ -21,7 +21,6 @@ epilogue is plain torch, as in the JAX package.
 """
 from __future__ import annotations
 
-import time
 from typing import Literal
 
 import numpy as np
@@ -36,6 +35,7 @@ from mba_tpu_torch.ops.cuda_msc import (coherence_ratio, fisher_atanh,
 from mba_tpu_torch.ops.dpss import (cmc_independence_threshold_host,
                                     filtered_tapers)
 from mba_tpu_torch.ops.framing import frame_signal, window_grid
+from mba_tpu_torch.utils.profiling import recording, span
 from mba_tpu_torch.utils.transfer import download_quantized
 
 __all__ = ["fisher_atanh", "inverse_fisher_atanh",
@@ -112,13 +112,14 @@ def _msc_all_windows(eeg, emg, starts, tapers, inv_fs_n, t_crit,
     """The active window grid in chunks of ``chunk`` windows."""
     parts: dict[str, list] = {}
     for c0 in range(0, len(starts), chunk):
-        cs = starts[c0:c0 + chunk]
-        out = _msc_chunk(frame_signal(eeg, cs, window_samples),
-                         frame_signal(emg, cs, window_samples),
-                         tapers, inv_fs_n, t_crit, use_jackknife,
-                         aggregate_emg_max)
-        for key, val in out.items():
-            parts.setdefault(key, []).append(val)
+        with span("cmc.chunk"):
+            cs = starts[c0:c0 + chunk]
+            out = _msc_chunk(frame_signal(eeg, cs, window_samples),
+                             frame_signal(emg, cs, window_samples),
+                             tapers, inv_fs_n, t_crit, use_jackknife,
+                             aggregate_emg_max)
+            for key, val in out.items():
+                parts.setdefault(key, []).append(val)
     return {key: torch.cat(vals) for key, vals in parts.items()}
 
 
@@ -221,162 +222,186 @@ def multitaper_msc(
     int16 (``native.quantize_int16_per_channel``), uploads the integers
     and casts them to float32 on the device; coherence is invariant to
     the per-channel scale, so only the signal's rounding remains.  int16
-    host input and tensors upload as they are.  ``collect_timings``
-    reports the bytes that crossed each way.
+    host input and tensors upload as they are.
+
+    ``collect_timings`` records the call (``utils.profiling.recording``)
+    and returns ``timings``: ``upload_sec``, ``compute_sec`` and
+    ``download_sec``, each the sum of its span's seconds, the bytes that
+    crossed each way, the span records (``spans``: the root ``cmc``;
+    ``cmc.plan``, ``cmc.upload``, ``cmc.compute`` with one ``cmc.chunk``
+    a window chunk, ``cmc.download``, ``cmc.scatter`` and
+    ``cmc.threshold``) and the ``counters`` (empty: the CMC counts
+    nothing that the keys above do not already give).  The upload and
+    compute spans then end in a synchronise, so that they hold the
+    card's work.  Without it the call reads no clock.
     """
-    if input_transfer not in (None, "int16"):
-        raise ValueError(f"unknown input_transfer {input_transfer!r}")
-    td_kind, td = _transfer_kind(transfer_dtype)
-    device = entry_device(device, eeg_array, emg_array)
+    with recording(collect_timings) as rec, span("cmc"):
+        with span("cmc.plan"):
+            if input_transfer not in (None, "int16"):
+                raise ValueError(
+                    f"unknown input_transfer {input_transfer!r}")
+            td_kind, td = _transfer_kind(transfer_dtype)
+            device = entry_device(device, eeg_array, emg_array)
 
-    eeg_shape = tuple(np.shape(eeg_array))
-    emg_shape = tuple(np.shape(emg_array))
-    if len(eeg_shape) != 2 or len(emg_shape) != 2:
-        raise ValueError("EEG/EMG arrays must be 2D")
-    if eeg_axis == 1:
-        eeg_shape = eeg_shape[::-1]
-    if emg_axis == 1:
-        emg_shape = emg_shape[::-1]
-    n_samples, n_eeg = eeg_shape
-    n_samples_m, n_emg = emg_shape
-    if n_samples != n_samples_m:
-        raise ValueError(
-            f"EEG and EMG must have same number of samples. "
-            f"Got EEG: {n_samples}, EMG: {n_samples_m}")
+            eeg_shape = tuple(np.shape(eeg_array))
+            emg_shape = tuple(np.shape(emg_array))
+            if len(eeg_shape) != 2 or len(emg_shape) != 2:
+                raise ValueError("EEG/EMG arrays must be 2D")
+            if eeg_axis == 1:
+                eeg_shape = eeg_shape[::-1]
+            if emg_axis == 1:
+                emg_shape = emg_shape[::-1]
+            n_samples, n_eeg = eeg_shape
+            n_samples_m, n_emg = emg_shape
+            if n_samples != n_samples_m:
+                raise ValueError(
+                    f"EEG and EMG must have same number of samples. "
+                    f"Got EEG: {n_samples}, EMG: {n_samples_m}")
 
-    window_samples = int(window_length_sec * sampling_freq)
-    hop_samples = int(window_samples * (1 - overlap_frac))
-    if hop_samples <= 0:
-        raise ValueError("overlap_frac too high: hop_samples becomes <= 0")
+            window_samples = int(window_length_sec * sampling_freq)
+            hop_samples = int(window_samples * (1 - overlap_frac))
+            if hop_samples <= 0:
+                raise ValueError(
+                    "overlap_frac too high: hop_samples becomes <= 0")
 
-    tapers = filtered_tapers(window_samples, nw, taper_eigenvalue_threshold)
-    K = tapers.shape[0]
-    if use_jackknife and K < 2:
-        raise ValueError("jackknife requires at least 2 tapers")
+            tapers = filtered_tapers(window_samples, nw,
+                                     taper_eigenvalue_threshold)
+            K = tapers.shape[0]
+            if use_jackknife and K < 2:
+                raise ValueError("jackknife requires at least 2 tapers")
 
-    starts, time_centers = window_grid(
-        n_samples, window_samples, hop_samples, sampling_freq,
-        convention="cmc")
-    n_windows = len(starts)
-    freqs = np.fft.rfftfreq(window_samples, d=1.0 / sampling_freq)
-    n_freqs = len(freqs)
-    if freq_range is not None:
-        f_lo, f_hi = freq_range
-        # inclusive on both edges — matches the band aggregators' rule
-        f0 = int(np.searchsorted(freqs, f_lo, side="left"))
-        f1 = int(np.searchsorted(freqs, f_hi, side="right"))
-        if f1 <= f0:
-            raise ValueError(
-                f"freq_range {freq_range} selects no frequency bins "
-                f"(axis spans {freqs[0]:.3f}-{freqs[-1]:.3f} Hz)")
-    else:
-        f0, f1 = 0, n_freqs
-    n_freqs_out = f1 - f0
+            starts, time_centers = window_grid(
+                n_samples, window_samples, hop_samples, sampling_freq,
+                convention="cmc")
+            n_windows = len(starts)
+            freqs = np.fft.rfftfreq(window_samples, d=1.0 / sampling_freq)
+            n_freqs = len(freqs)
+            if freq_range is not None:
+                f_lo, f_hi = freq_range
+                # inclusive on both edges — matches the band aggregators'
+                # rule
+                f0 = int(np.searchsorted(freqs, f_lo, side="left"))
+                f1 = int(np.searchsorted(freqs, f_hi, side="right"))
+                if f1 <= f0:
+                    raise ValueError(
+                        f"freq_range {freq_range} selects no frequency bins "
+                        f"(axis spans {freqs[0]:.3f}-{freqs[-1]:.3f} Hz)")
+            else:
+                f0, f1 = 0, n_freqs
+            n_freqs_out = f1 - f0
 
-    if window_mask is not None:
-        window_mask = np.asarray(window_mask, dtype=bool)
-        if window_mask.shape != (n_windows,):
-            raise ValueError(
-                f"window_mask must have shape ({n_windows},), "
-                f"got {window_mask.shape}")
-        active = np.nonzero(window_mask)[0]
-    else:
-        active = np.arange(n_windows)
-    n_active = len(active)
-    if verbose:
-        print(f"window_mask: {n_active}/{n_windows} windows will be computed"
-              f" ({100 * n_active / max(n_windows, 1):.1f}%) | K={K} tapers")
+            if window_mask is not None:
+                window_mask = np.asarray(window_mask, dtype=bool)
+                if window_mask.shape != (n_windows,):
+                    raise ValueError(
+                        f"window_mask must have shape ({n_windows},), "
+                        f"got {window_mask.shape}")
+                active = np.nonzero(window_mask)[0]
+            else:
+                active = np.arange(n_windows)
+            n_active = len(active)
+            if verbose:
+                print(f"window_mask: {n_active}/{n_windows} windows will be "
+                      f"computed ({100 * n_active / max(n_windows, 1):.1f}%)"
+                      f" | K={K} tapers")
 
-    t_crit = jackknife_t_crit(K, jackknife_alpha)
-    inv_fs_n = float(np.float32(1.0 / (sampling_freq * window_samples)))
-    fused = use_jackknife and device.type == "cuda"
-    chunk = window_chunk or _auto_chunk(window_samples, K, n_eeg, n_emg,
-                                        use_jackknife, fused)
-    chunk = int(min(chunk, max(n_active, 1)))
+            t_crit = jackknife_t_crit(K, jackknife_alpha)
+            inv_fs_n = float(np.float32(1.0 / (sampling_freq
+                                               * window_samples)))
+            fused = use_jackknife and device.type == "cuda"
+            chunk = window_chunk or _auto_chunk(window_samples, K, n_eeg,
+                                                n_emg, use_jackknife, fused)
+            chunk = int(min(chunk, max(n_active, 1)))
 
-    timings: dict | None = {} if collect_timings else None
-    t0 = time.perf_counter()
-    eeg = _upload(eeg_array, eeg_axis, input_transfer, device)
-    emg = _upload(emg_array, emg_axis, input_transfer, device)
-    upload_bytes = sum(x.numel() * x.element_size() for x in (eeg, emg))
-    eeg, emg = eeg.to(torch.float32), emg.to(torch.float32)
-    tapers_t = torch.as_tensor(tapers, dtype=torch.float32, device=device)
-    if timings is not None:
-        synchronize(device)
-        timings["upload_sec"] = round(time.perf_counter() - t0, 3)
-        timings["upload_bytes"] = int(upload_bytes)
-        t0 = time.perf_counter()
+        with span("cmc.upload"):
+            eeg = _upload(eeg_array, eeg_axis, input_transfer, device)
+            emg = _upload(emg_array, emg_axis, input_transfer, device)
+            upload_bytes = sum(x.numel() * x.element_size()
+                               for x in (eeg, emg))
+            eeg, emg = eeg.to(torch.float32), emg.to(torch.float32)
+            tapers_t = torch.as_tensor(tapers, dtype=torch.float32,
+                                       device=device)
+            if collect_timings:
+                synchronize(device)
 
-    if n_active > 0:
-        device_out = _msc_all_windows(
-            eeg, emg, torch.as_tensor(starts[active], device=device),
-            tapers_t, inv_fs_n, t_crit, window_samples, chunk,
-            use_jackknife, aggregate_emg_max)
-        if (f0, f1) != (0, n_freqs):
-            device_out = {key: val[:, f0:f1]
-                          for key, val in device_out.items()}
-        if timings is not None:
-            synchronize(device)
-            timings["compute_sec"] = round(time.perf_counter() - t0, 3)
-            t0 = time.perf_counter()
-        compact, dl_bytes = _download(device_out, td_kind, td, n_active)
-        if timings is not None:
-            timings["download_sec"] = round(time.perf_counter() - t0, 3)
-            timings["download_bytes"] = int(dl_bytes)
-    else:
-        shape_tail = (n_freqs_out, n_eeg) if aggregate_emg_max \
-            else (n_freqs_out, n_eeg, n_emg)
-        compact = {"coherence": np.zeros((0,) + shape_tail, np.float32)}
+        dl_bytes = 0
+        if n_active > 0:
+            with span("cmc.compute"):
+                device_out = _msc_all_windows(
+                    eeg, emg, torch.as_tensor(starts[active], device=device),
+                    tapers_t, inv_fs_n, t_crit, window_samples, chunk,
+                    use_jackknife, aggregate_emg_max)
+                if (f0, f1) != (0, n_freqs):
+                    device_out = {key: val[:, f0:f1]
+                                  for key, val in device_out.items()}
+                if collect_timings:
+                    synchronize(device)
+            with span("cmc.download"):
+                compact, dl_bytes = _download(device_out, td_kind, td,
+                                              n_active)
+        else:
+            shape_tail = (n_freqs_out, n_eeg) if aggregate_emg_max \
+                else (n_freqs_out, n_eeg, n_emg)
+            compact = {"coherence": np.zeros((0,) + shape_tail, np.float32)}
+            if use_jackknife:
+                compact["ci_lower"] = compact["coherence"].copy()
+                compact["ci_upper"] = compact["coherence"].copy()
+
+        with span("cmc.scatter"):
+            out_tail = compact["coherence"].shape[1:]
+            full = {key: np.zeros((n_windows,) + out_tail, dtype=np.float32)
+                    for key in compact}
+            for key in compact:
+                full[key][active] = compact[key]
+
+        result = {
+            "coherence_raw": full["coherence"],
+            "time_centers": time_centers,
+            "freqs": freqs[f0:f1],
+            "metadata": {
+                "K_tapers": int(K),
+                "n_windows": int(n_windows),
+                "n_active_windows": int(n_active),
+                "window_length_sec": window_length_sec,
+                "overlap_frac": overlap_frac,
+                "use_jackknife": use_jackknife,
+                "apply_independence_threshold": apply_independence_threshold,
+                "apply_bonferroni_correction": apply_bonferroni_correction,
+                "significance_level": significance_level,
+                "freq_range": freq_range,
+            },
+        }
         if use_jackknife:
-            compact["ci_lower"] = compact["coherence"].copy()
-            compact["ci_upper"] = compact["coherence"].copy()
+            result["coherence_ci_lower"] = full["ci_lower"]
+            result["coherence_ci_upper"] = full["ci_upper"]
 
-    out_tail = compact["coherence"].shape[1:]
-    full = {key: np.zeros((n_windows,) + out_tail, dtype=np.float32)
-            for key in compact}
-    for key in compact:
-        full[key][active] = compact[key]
+        if apply_independence_threshold:
+            with span("cmc.threshold"):
+                n_comp = n_eeg * n_emg
+                alpha_adj = (max(significance_level / n_comp, 1e-10)
+                             if apply_bonferroni_correction
+                             else significance_level)
+                it = cmc_independence_threshold_host(K, alpha=alpha_adj)
+                result["coherence_significant"] = \
+                    result["coherence_raw"] > it
+                result["metadata"]["IT_unadjusted"] = float(
+                    cmc_independence_threshold_host(
+                        K, alpha=significance_level))
+                if apply_bonferroni_correction:
+                    result["metadata"]["IT_bonferroni"] = float(it)
+                    result["metadata"]["n_comparisons"] = n_comp
+                result["metadata"]["n_significant"] = int(
+                    result["coherence_significant"].sum())
 
-    result = {
-        "coherence_raw": full["coherence"],
-        "time_centers": time_centers,
-        "freqs": freqs[f0:f1],
-        "metadata": {
-            "K_tapers": int(K),
-            "n_windows": int(n_windows),
-            "n_active_windows": int(n_active),
-            "window_length_sec": window_length_sec,
-            "overlap_frac": overlap_frac,
-            "use_jackknife": use_jackknife,
-            "apply_independence_threshold": apply_independence_threshold,
-            "apply_bonferroni_correction": apply_bonferroni_correction,
-            "significance_level": significance_level,
-            "freq_range": freq_range,
-        },
-    }
-    if use_jackknife:
-        result["coherence_ci_lower"] = full["ci_lower"]
-        result["coherence_ci_upper"] = full["ci_upper"]
-    if timings is not None:
-        timings.setdefault("compute_sec", 0.0)
-        timings.setdefault("download_sec", 0.0)
-        timings.setdefault("download_bytes", 0)
-        result["timings"] = timings
-
-    if apply_independence_threshold:
-        n_comp = n_eeg * n_emg
-        alpha_adj = (max(significance_level / n_comp, 1e-10)
-                     if apply_bonferroni_correction else significance_level)
-        it = cmc_independence_threshold_host(K, alpha=alpha_adj)
-        result["coherence_significant"] = result["coherence_raw"] > it
-        result["metadata"]["IT_unadjusted"] = float(
-            cmc_independence_threshold_host(K, alpha=significance_level))
-        if apply_bonferroni_correction:
-            result["metadata"]["IT_bonferroni"] = float(it)
-            result["metadata"]["n_comparisons"] = n_comp
-        result["metadata"]["n_significant"] = int(
-            result["coherence_significant"].sum())
-    return result
+        if rec is not None:
+            # each time is the sum of its spans
+            result["timings"] = {
+                "upload_sec": rec.seconds("cmc.upload"),
+                "upload_bytes": int(upload_bytes),
+                "compute_sec": rec.seconds("cmc.compute"),
+                "download_sec": rec.seconds("cmc.download"),
+                "download_bytes": int(dl_bytes), **rec.timings()}
+        return result
 
 
 def max_cmc_over_channels(cmc_array, lower=None, upper=None,

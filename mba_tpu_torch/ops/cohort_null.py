@@ -64,6 +64,7 @@ from mba_tpu_torch.ops.framing import window_grid
 from mba_tpu_torch.ops.gram_coeffs import _pair_indices, gram_coeffs_subject
 from mba_tpu_torch.ops.rotation_coeffs import (band_spectra, pad_windows,
                                                rotation_coeffs_subject)
+from mba_tpu_torch.utils.profiling import count, recording, span
 
 # cohort_msc_null's default flop budget for the full-FFT engine, by
 # device type: the CPU value is the JAX package's (cohort_null.py:1501);
@@ -363,6 +364,23 @@ def cohort_msc_rotation_null(
     ``timings['quantize_sec']`` is the host conversion's seconds and
     ``upload_bytes`` the bytes that crossed.
 
+    Every call is recorded (``utils.profiling.recording``):
+    ``timings['spans']`` holds the records of the root ``null``,
+    ``null.plan``, one ``null.upload`` (with ``null.quantize`` inside
+    where the host converts) and one ``null.coeffs`` a subject (one of
+    each for the whole cohort where ``overlap_upload`` is False),
+    ``null.gather`` under a mesh, ``null.epilogue``, and
+    ``null.surrogates`` with one ``null.chunk`` a surrogate chunk;
+    ``timings['counters']`` the windows the coefficient pass frames,
+    padding included (``coeffs.windows_framed``), and those of nonzero
+    weight (``coeffs.windows_weighted``).  The ``*_sec`` times come from
+    these spans: ``upload_sec`` is the sum of ``null.upload``,
+    ``quantize_sec`` of ``null.quantize``, ``coeffs_sec`` of
+    ``null.coeffs`` and ``null.gather``, ``null_sec`` of
+    ``null.surrogates``; ``precompute_sec`` runs from the end of
+    ``null.plan`` (the window set's upload follows it) to the end of
+    ``null.epilogue``.
+
     ``coeff_engine``: ``'auto'`` and ``'gram'`` run the gram matmuls;
     ``'pallas'`` the chunked window pass through kernel B3 (its plain
     version on the CPU); ``'xla'`` that pass through B3's plain version
@@ -387,255 +405,267 @@ def cohort_msc_rotation_null(
     mesh decides the device (a ``device`` naming another raises), and
     the per-window mode refuses a mesh, as in the JAX package.
     """
-    if rotation_mode not in ("shared", "per_window"):
-        raise ValueError("rotation_mode must be 'shared' or 'per_window', "
-                         f"got {rotation_mode!r}")
-    per_window = rotation_mode == "per_window"
-    if mesh is not None:
-        check_mesh(mesh)
-        if per_window:
-            raise ValueError("rotation_mode='per_window' does not support "
-                             "mesh sharding; use the shared mode or run "
-                             "single-device")
-    if coeff_engine not in ("auto", "gram", "pallas", "xla"):
-        raise ValueError("coeff_engine must be 'auto', 'gram', 'pallas' "
-                         f"or 'xla', got {coeff_engine!r}")
-    cdtype = compute_dtype_of(compute_dtype)
-    quantize = upload_quantizer(transfer_dtype, eeg_cohort, emg_cohort)
-    if mesh is None:
-        device = entry_device(device, eeg_cohort, emg_cohort)
-    else:
-        device = mesh_entry_device(mesh, device)
+    with recording() as rec, span("null"):
+        with span("null.plan"):
+            if rotation_mode not in ("shared", "per_window"):
+                raise ValueError("rotation_mode must be 'shared' or "
+                                 f"'per_window', got {rotation_mode!r}")
+            per_window = rotation_mode == "per_window"
+            if mesh is not None:
+                check_mesh(mesh)
+                if per_window:
+                    raise ValueError("rotation_mode='per_window' does not "
+                                     "support mesh sharding; use the shared "
+                                     "mode or run single-device")
+            if coeff_engine not in ("auto", "gram", "pallas", "xla"):
+                raise ValueError("coeff_engine must be 'auto', 'gram', "
+                                 f"'pallas' or 'xla', got {coeff_engine!r}")
+            cdtype = compute_dtype_of(compute_dtype)
+            quantize = upload_quantizer(transfer_dtype, eeg_cohort,
+                                        emg_cohort)
+            if mesh is None:
+                device = entry_device(device, eeg_cohort, emg_cohort)
+            else:
+                device = mesh_entry_device(mesh, device)
 
-    eeg_shape = tuple(np.shape(eeg_cohort))
-    emg_shape = tuple(np.shape(emg_cohort))
-    if len(eeg_shape) != 3 or len(emg_shape) != 3:
-        raise ValueError("cohort arrays must be (J, n_samples, n_channels)")
-    if eeg_shape[:2] != emg_shape[:2]:
-        raise ValueError("EEG/EMG cohorts must share (J, n_samples)")
-    J, n_samples, nE = eeg_shape
-    nM = emg_shape[2]
+            eeg_shape = tuple(np.shape(eeg_cohort))
+            emg_shape = tuple(np.shape(emg_cohort))
+            if len(eeg_shape) != 3 or len(emg_shape) != 3:
+                raise ValueError(
+                    "cohort arrays must be (J, n_samples, n_channels)")
+            if eeg_shape[:2] != emg_shape[:2]:
+                raise ValueError("EEG/EMG cohorts must share (J, n_samples)")
+            J, n_samples, nE = eeg_shape
+            nM = emg_shape[2]
 
-    window_samples = int(window_length_sec * sampling_freq)
-    hop = int(window_samples * (1 - overlap_frac))
-    tapers = filtered_tapers(window_samples, nw, taper_eigenvalue_threshold)
-    K = int(tapers.shape[0])
-    if K < 2:
-        raise ValueError("rotation null requires at least 2 tapers")
-    freqs, lo, hi = _band_bins(window_samples, sampling_freq, band)
-    nF = hi - lo
+            window_samples = int(window_length_sec * sampling_freq)
+            hop = int(window_samples * (1 - overlap_frac))
+            tapers = filtered_tapers(window_samples, nw,
+                                     taper_eigenvalue_threshold)
+            K = int(tapers.shape[0])
+            if K < 2:
+                raise ValueError("rotation null requires at least 2 tapers")
+            freqs, lo, hi = _band_bins(window_samples, sampling_freq, band)
+            nF = hi - lo
 
-    window_starts, window_weights = _window_set(
-        window_starts, window_weights, J, n_samples, window_samples, hop,
-        sampling_freq)
-    if p_value_windows == "disjoint":
-        window_weights = disjoint_window_weights(
-            window_starts, window_weights, window_samples)
-    elif p_value_windows != "all":
-        raise ValueError("p_value_windows must be 'disjoint' or 'all', "
-                         f"got {p_value_windows!r}")
-    W = window_starts.shape[1]
-    wc = int(min(window_chunk, W))
-    Wp = -(-W // wc) * wc
-    if per_window:
-        if p_value_windows != "disjoint":
-            raise ValueError("rotation_mode='per_window' requires "
-                             "p_value_windows='disjoint': independent "
-                             "per-window rotations are only distribution-"
-                             "preserving for non-overlapping windows")
-        pw_bytes = Wp * J * nF * nE * nM * K * (K - 1) * 4
-        if pw_bytes > per_window_max_coef_bytes:
-            raise ValueError(
-                f"per-window coefficients need {pw_bytes / 1e9:.1f} GB "
-                f"(> {per_window_max_coef_bytes / 1e9:.1f} GB budget) — "
-                "the per-window mode is for small window counts / channel "
-                "subsets; use rotation_mode='shared' (window-summed "
-                "coefficients, W-independent memory) at this scale")
-    engine = "gram" if coeff_engine == "auto" else coeff_engine
-    if per_window:
-        engine = "xla"                # per-window keeps the scan engine
+            window_starts, window_weights = _window_set(
+                window_starts, window_weights, J, n_samples, window_samples,
+                hop, sampling_freq)
+            if p_value_windows == "disjoint":
+                window_weights = disjoint_window_weights(
+                    window_starts, window_weights, window_samples)
+            elif p_value_windows != "all":
+                raise ValueError("p_value_windows must be 'disjoint' or "
+                                 f"'all', got {p_value_windows!r}")
+            W = window_starts.shape[1]
+            wc = int(min(window_chunk, W))
+            Wp = -(-W // wc) * wc
+            if per_window:
+                if p_value_windows != "disjoint":
+                    raise ValueError(
+                        "rotation_mode='per_window' requires "
+                        "p_value_windows='disjoint': independent per-window "
+                        "rotations are only distribution-preserving for "
+                        "non-overlapping windows")
+                pw_bytes = Wp * J * nF * nE * nM * K * (K - 1) * 4
+                if pw_bytes > per_window_max_coef_bytes:
+                    raise ValueError(
+                        f"per-window coefficients need {pw_bytes / 1e9:.1f} "
+                        f"GB (> {per_window_max_coef_bytes / 1e9:.1f} GB "
+                        "budget) — the per-window mode is for small window "
+                        "counts / channel subsets; use rotation_mode="
+                        "'shared' (window-summed coefficients, "
+                        "W-independent memory) at this scale")
+            engine = "gram" if coeff_engine == "auto" else coeff_engine
+            if per_window:
+                engine = "xla"            # per-window keeps the scan engine
 
-    # ---- precompute all-subject rotation coefficients (device-resident) --
-    t_pre0 = time.perf_counter()
-    tapers_t = torch.as_tensor(tapers, dtype=torch.float32, device=device)
-    starts_all = torch.as_tensor(window_starts, device=device)
-    weights_all = torch.as_tensor(window_weights, device=device)
+        # ---- all-subject rotation coefficients (device-resident) ----
+        tapers_t = torch.as_tensor(tapers, dtype=torch.float32,
+                                   device=device)
+        starts_all = torch.as_tensor(window_starts, device=device)
+        weights_all = torch.as_tensor(window_weights, device=device)
 
-    def subject_coeffs(eeg_j, emg_j, j):
-        # integer ADC counts travel as they are; every engine casts them
-        # to float32 per window chunk
-        if engine == "gram":
-            return gram_coeffs_subject(eeg_j, emg_j, starts_all[j],
-                                       weights_all[j], tapers_t,
-                                       window_samples, lo, hi)
-        return rotation_coeffs_subject(
-            eeg_j, emg_j, starts_all[j], weights_all[j], tapers_t,
-            window_samples, lo, hi, wc, engine=engine,
-            per_window=per_window)
+        def subject_coeffs(eeg_j, emg_j, j):
+            # integer ADC counts travel as they are; every engine casts
+            # them to float32 per window chunk.  The engine counts the
+            # windows it frames; the weighted ones are counted here, from
+            # the host's copy of the weights
+            count("coeffs.windows_weighted",
+                  np.count_nonzero(window_weights[j]))
+            if engine == "gram":
+                return gram_coeffs_subject(eeg_j, emg_j, starts_all[j],
+                                           weights_all[j], tapers_t,
+                                           window_samples, lo, hi)
+            return rotation_coeffs_subject(
+                eeg_j, emg_j, starts_all[j], weights_all[j], tapers_t,
+                window_samples, lo, hi, wc, engine=engine,
+                per_window=per_window)
 
-    t_q = 0.0
+        def link(x) -> torch.Tensor:
+            """``x`` on the device, converted on the host first where
+            ``transfer_dtype`` asks for it (spanned apart:
+            null.quantize)."""
+            if quantize is None:
+                return to_device(x, device)
+            with span("null.quantize"):
+                x = quantize(x)
+            return x.to(device)
 
-    def link(x) -> torch.Tensor:
-        """``x`` on the device, converted on the host first where
-        ``transfer_dtype`` asks for it (also timed apart: quantize_sec)."""
-        nonlocal t_q
-        if quantize is None:
-            return to_device(x, device)
-        t0 = time.perf_counter()
-        x = quantize(x)
-        t_q += time.perf_counter() - t0
-        return x.to(device)
-
-    t_up = t_co = 0.0
-    upload_bytes = 0
-    bases, coefs = [], []
-    if mesh is not None or (overlap_upload and not per_window):
-        # one subject at a time: upload, then its coefficient pass.  Under
-        # a mesh (cohort_null.py:667-713, :1115-1155) flat rank r takes
-        # subjects r·jl … (r+1)·jl − 1 of the cohort padded to n_ranks·jl
-        # by repeating the last subject; the passes are gathered and the
-        # pad rows dropped before the epilogue
-        if mesh is None:
-            subjects = range(J)
+        upload_bytes = 0
+        bases, coefs = [], []
+        if mesh is not None or (overlap_upload and not per_window):
+            # one subject at a time: upload, then its coefficient pass.
+            # Under a mesh (cohort_null.py:667-713, :1115-1155) flat rank r
+            # takes subjects r·jl … (r+1)·jl − 1 of the cohort padded to
+            # n_ranks·jl by repeating the last subject; the passes are
+            # gathered and the pad rows dropped before the epilogue
+            if mesh is None:
+                subjects = range(J)
+            else:
+                jl = -(-J // mesh.size())
+                r = flat_index(mesh)
+                subjects = [min(j, J - 1)
+                            for j in range(r * jl, (r + 1) * jl)]
+            for j in subjects:
+                with span("null.upload"):
+                    eeg_j = link(eeg_cohort[j])
+                    emg_j = link(emg_cohort[j])
+                    synchronize(device)
+                upload_bytes += _nbytes(eeg_j) + _nbytes(emg_j)
+                with span("null.coeffs"):
+                    b, c = subject_coeffs(eeg_j, emg_j, j)
+                    bases.append(b)
+                    coefs.append(c)
+                    del eeg_j, emg_j
+                    synchronize(device)
+            if mesh is not None:
+                with span("null.gather"):
+                    bases = list(torch.cat(_dist.gather(torch.stack(bases),
+                                                        mesh))[:J])
+                    coefs = list(torch.cat(_dist.gather(torch.stack(coefs),
+                                                        mesh))[:J])
+                    synchronize(device)
         else:
-            jl = -(-J // mesh.size())
-            r = flat_index(mesh)
-            subjects = [min(j, J - 1) for j in range(r * jl, (r + 1) * jl)]
-        for j in subjects:
-            t0 = time.perf_counter()
-            eeg_j = link(eeg_cohort[j])
-            emg_j = link(emg_cohort[j])
-            synchronize(device)
-            t_up += time.perf_counter() - t0
-            upload_bytes += _nbytes(eeg_j) + _nbytes(emg_j)
-            t0 = time.perf_counter()
-            b, c = subject_coeffs(eeg_j, emg_j, j)
-            bases.append(b)
-            coefs.append(c)
-            del eeg_j, emg_j
-            synchronize(device)
-            t_co += time.perf_counter() - t0
+            # fused (cohort_null.py:1059-1080): the whole cohort first
+            with span("null.upload"):
+                eeg_d = link(eeg_cohort)
+                emg_d = link(emg_cohort)
+                synchronize(device)
+            upload_bytes = _nbytes(eeg_d) + _nbytes(emg_d)
+            with span("null.coeffs"):
+                for j in range(J):
+                    b, c = subject_coeffs(eeg_d[j], emg_d[j], j)
+                    bases.append(b)
+                    coefs.append(c)
+                del eeg_d, emg_d
+                synchronize(device)
+        with span("null.epilogue"):
+            epilogue = cohort_epilogue_pw if per_window else cohort_epilogue
+            base_cohort, coef_all, observed_flat = epilogue(bases, coefs)
+            del bases, coefs
+            observed = observed_flat.reshape(nF, nE, nM).cpu().numpy()
+        P_feats = int(coef_all.shape[-1])
+        # each time is the sum of its spans; upload_sec includes the host
+        # conversion, quantize_sec is it alone
+        t_stage = dict(
+            precompute_sec=rec.end("null.epilogue") - rec.end("null.plan"),
+            quantize_sec=rec.seconds("null.quantize"),
+            upload_sec=rec.seconds("null.upload"),
+            coeffs_sec=rec.seconds("null.coeffs", "null.gather"),
+            upload_bytes=int(upload_bytes), coeff_engine=engine)
         if mesh is not None:
-            t0 = time.perf_counter()
-            bases = list(torch.cat(_dist.gather(torch.stack(bases),
-                                                mesh))[:J])
-            coefs = list(torch.cat(_dist.gather(torch.stack(coefs),
-                                                mesh))[:J])
-            synchronize(device)
-            t_co += time.perf_counter() - t0
-    else:
-        # fused (cohort_null.py:1059-1080): the whole cohort first
-        t0 = time.perf_counter()
-        eeg_d = link(eeg_cohort)
-        emg_d = link(emg_cohort)
-        synchronize(device)
-        t_up = time.perf_counter() - t0
-        upload_bytes = _nbytes(eeg_d) + _nbytes(emg_d)
-        t0 = time.perf_counter()
-        for j in range(J):
-            b, c = subject_coeffs(eeg_d[j], emg_d[j], j)
-            bases.append(b)
-            coefs.append(c)
-        del eeg_d, emg_d
-        synchronize(device)
-        t_co = time.perf_counter() - t0
-    epilogue = cohort_epilogue_pw if per_window else cohort_epilogue
-    base_cohort, coef_all, observed_flat = epilogue(bases, coefs)
-    del bases, coefs
-    observed = observed_flat.reshape(nF, nE, nM).cpu().numpy()
-    P_feats = int(coef_all.shape[-1])
-    t_precompute = time.perf_counter() - t_pre0
-    # upload_sec includes the host conversion, quantize_sec is it alone
-    t_stage = dict(quantize_sec=round(t_q, 3), upload_sec=round(t_up, 3),
-                   coeffs_sec=round(t_co, 3),
-                   upload_bytes=int(upload_bytes), coeff_engine=engine)
-    if mesh is not None:
-        t_stage["coeffs_shard_devices"] = mesh.size()
+            t_stage["coeffs_shard_devices"] = mesh.size()
 
-    if precompute_only:
+        if precompute_only:
+            return {
+                "observed": observed,
+                "freqs": freqs,
+                "metadata": {
+                    "method": "taper_rotation",
+                    "rotation_mode": rotation_mode,
+                    "K_tapers": K,
+                    "n_subjects": J,
+                    "band": tuple(band),
+                    "band_bins": (lo, hi),
+                    "timings": {**t_stage, **rec.timings()},
+                },
+            }
+
+        if verbose:
+            gB = coef_all.numel() * 4 / 1e9
+            print(f"[rotation-null] J={J} K={K} F={nF} pairs={nE}x{nM} "
+                  f"P={P_feats} coef tensor {gB:.2f} GB, "
+                  f"{n_surrogates} surrogates in chunks of {surrogate_chunk}")
+
+        # ---- surrogate chunks --------------------------------------------
+        with span("null.surrogates"):
+            state = null_state(base_cohort, coef_all, observed_flat, cdtype)
+            del coef_all
+            counts = torch.zeros((nF, nE * nM), dtype=torch.int32,
+                                 device=device)
+            chunk = int(min(surrogate_chunk, n_surrogates))
+            key = prng.prng_key(seed)
+            max_stats = []
+            n_total = 0
+            while n_total < n_surrogates:
+                with span("null.chunk"):
+                    key, sub = prng.split(key)
+                    if per_window:
+                        ms, inc = null_chunk_pw(
+                            window_phases(sub, Wp, J, chunk, K, nF, device),
+                            state)
+                    elif mesh is not None:
+                        # cohort_null.py:748-800, :1257-1313: this rank's
+                        # chunk, then the count increments summed and the
+                        # maxima gathered
+                        rank_key = prng.split(sub, mesh.size())[
+                            flat_index(mesh)]
+                        ms, inc = null_chunk(
+                            draw_phases(rank_key, J, chunk, K, nF, device),
+                            state)
+                        _dist.psum_(inc)
+                        ms = torch.cat(_dist.gather(ms, mesh))
+                    else:
+                        ms, inc = null_chunk(
+                            draw_phases(sub, J, chunk, K, nF, device), state)
+                    counts += inc
+                    max_stats.append(ms)
+                n_total += ms.shape[0]
+            # surplus draws in the last chunk are equally valid null
+            # samples; the per-cell counts are normalised by the true total
+            max_stat = torch.cat(max_stats).cpu().numpy()[:n_surrogates]
+            counts_np = counts.cpu().numpy().reshape(nF, nE, nM)
+        p_unc = (1.0 + counts_np) / (1.0 + n_total)
+        p_fwe = float((1.0 + (max_stat >= observed.max()).sum())
+                      / (1.0 + len(max_stat)))
+
         return {
             "observed": observed,
             "freqs": freqs,
+            "max_stat": max_stat,
+            "null_quantiles": {q: float(np.quantile(max_stat, q))
+                               for q in quantiles},
+            "p_uncorrected": p_unc.astype(np.float32),
+            "p_fwe": p_fwe,
             "metadata": {
                 "method": "taper_rotation",
-                "rotation_mode": rotation_mode,
                 "K_tapers": K,
-                "n_subjects": J,
+                "n_surrogates_drawn": int(n_total),
+                "n_surrogates": int(n_surrogates),
                 "band": tuple(band),
                 "band_bins": (lo, hi),
-                "timings": {"precompute_sec": round(t_precompute, 3),
-                            **t_stage},
+                "n_subjects": J,
+                "rotation_mode": rotation_mode,
+                "compute_dtype": str(cdtype).removeprefix("torch."),
+                "contraction_flops": float(2 * n_total * nF * nE * nM * J
+                                           * P_feats * (Wp if per_window
+                                                        else 1)),
+                "timings": {**t_stage,
+                            "null_sec": rec.seconds("null.surrogates"),
+                            **rec.timings()},
             },
         }
-
-    if verbose:
-        gB = coef_all.numel() * 4 / 1e9
-        print(f"[rotation-null] J={J} K={K} F={nF} pairs={nE}x{nM} "
-              f"P={P_feats} coef tensor {gB:.2f} GB, "
-              f"{n_surrogates} surrogates in chunks of {surrogate_chunk}")
-
-    # ---- surrogate chunks ------------------------------------------------
-    t_null0 = time.perf_counter()
-    state = null_state(base_cohort, coef_all, observed_flat, cdtype)
-    del coef_all
-    counts = torch.zeros((nF, nE * nM), dtype=torch.int32, device=device)
-    chunk = int(min(surrogate_chunk, n_surrogates))
-    key = prng.prng_key(seed)
-    max_stats = []
-    n_total = 0
-    while n_total < n_surrogates:
-        key, sub = prng.split(key)
-        if per_window:
-            ms, inc = null_chunk_pw(
-                window_phases(sub, Wp, J, chunk, K, nF, device), state)
-        elif mesh is not None:
-            # cohort_null.py:748-800, :1257-1313: this rank's chunk, then
-            # the count increments summed and the maxima gathered
-            rank_key = prng.split(sub, mesh.size())[flat_index(mesh)]
-            ms, inc = null_chunk(
-                draw_phases(rank_key, J, chunk, K, nF, device), state)
-            _dist.psum_(inc)
-            ms = torch.cat(_dist.gather(ms, mesh))
-        else:
-            ms, inc = null_chunk(draw_phases(sub, J, chunk, K, nF, device),
-                                 state)
-        counts += inc
-        max_stats.append(ms)
-        n_total += ms.shape[0]
-    # surplus draws in the last chunk are equally valid null samples; the
-    # per-cell counts are normalised by the true total
-    max_stat = torch.cat(max_stats).cpu().numpy()[:n_surrogates]
-    counts_np = counts.cpu().numpy().reshape(nF, nE, nM)
-    t_null = time.perf_counter() - t_null0
-    p_unc = (1.0 + counts_np) / (1.0 + n_total)
-    p_fwe = float((1.0 + (max_stat >= observed.max()).sum())
-                  / (1.0 + len(max_stat)))
-
-    return {
-        "observed": observed,
-        "freqs": freqs,
-        "max_stat": max_stat,
-        "null_quantiles": {q: float(np.quantile(max_stat, q))
-                           for q in quantiles},
-        "p_uncorrected": p_unc.astype(np.float32),
-        "p_fwe": p_fwe,
-        "metadata": {
-            "method": "taper_rotation",
-            "K_tapers": K,
-            "n_surrogates_drawn": int(n_total),
-            "n_surrogates": int(n_surrogates),
-            "band": tuple(band),
-            "band_bins": (lo, hi),
-            "n_subjects": J,
-            "rotation_mode": rotation_mode,
-            "compute_dtype": str(cdtype).removeprefix("torch."),
-            "contraction_flops": float(2 * n_total * nF * nE * nM * J
-                                       * P_feats * (Wp if per_window
-                                                    else 1)),
-            "timings": {"precompute_sec": round(t_precompute, 3),
-                        "null_sec": round(t_null, 3), **t_stage},
-        },
-    }
 
 
 # ---- the full-FFT phase-randomisation engine -----------------------------

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from mba_tpu_torch.ops.framing import frame_signal
+from mba_tpu_torch.utils.profiling import count
 
 _F32_TINY = float(np.finfo(np.float32).tiny)
 # clamp each power factor at sqrt(tiny) so the factorized denominator
@@ -89,6 +90,7 @@ def gram_coeffs_subject(eeg: torch.Tensor, emg: torch.Tensor,
     if pad:
         starts = torch.cat([starts, starts[:1].repeat(pad)])
         weights = torch.cat([weights, weights.new_zeros(pad)])
+    count("coeffs.windows_framed", starts.shape[0])
     if spectra == "dft":
         D = band_dft_tapered(tapers, window_samples, band_lo, band_hi)
 

@@ -31,6 +31,7 @@ from mba_tpu_torch.ops.cuda_coeffs import (_F32_TINY, coeff_pairs,
                                            coeff_pairs_plain, taper_products)
 from mba_tpu_torch.ops.framing import frame_signal
 from mba_tpu_torch.ops.gram_coeffs import _pair_indices
+from mba_tpu_torch.utils.profiling import count
 
 ENGINES = ("pallas", "xla")
 
@@ -90,6 +91,7 @@ def rotation_coeffs_subject(eeg: torch.Tensor, emg: torch.Tensor,
     nE, nM = eeg.shape[1], emg.shape[1]
     starts, weights = pad_windows(starts, weights.to(torch.float32),
                                   window_chunk)
+    count("coeffs.windows_framed", starts.shape[0])
     pairs = coeff_pairs if engine == "pallas" else coeff_pairs_plain
     parts, total = [], None
     for c0 in range(0, starts.shape[0], window_chunk):
