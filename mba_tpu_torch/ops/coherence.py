@@ -35,7 +35,7 @@ from mba_tpu_torch.ops.cuda_msc import (coherence_ratio, fisher_atanh,
 from mba_tpu_torch.ops.dpss import (cmc_independence_threshold_host,
                                     filtered_tapers)
 from mba_tpu_torch.ops.framing import frame_signal, window_grid
-from mba_tpu_torch.utils.profiling import recording, span
+from mba_tpu_torch.utils.profiling import count, recording, span
 from mba_tpu_torch.utils.transfer import download_quantized
 
 __all__ = ["fisher_atanh", "inverse_fisher_atanh",
@@ -153,26 +153,54 @@ def _upload(x, axis: int, input_transfer, device) -> torch.Tensor:
     return x.T if axis == 1 else x
 
 
-def _download(device_out: dict, kind, td, n_active: int):
-    """The results to the host as float32 numpy, in one download each:
-    float32, cast to ``td`` on the device first, or through the per-lane
-    quantizer (``coherence.py:427-446``).  Returns (dict, bytes)."""
+def _runs(active: np.ndarray) -> list[tuple[int, int, int]]:
+    """The runs of consecutive active windows, each as (its first window
+    on the full grid, its first row among the active windows, length)."""
+    cut = np.flatnonzero(np.diff(active) != 1) + 1
+    firsts = np.concatenate(([0], cut))
+    ends = np.concatenate((cut, [len(active)]))
+    return [(int(active[a]), int(a), int(b - a))
+            for a, b in zip(firsts, ends)]
+
+
+def _write_runs(full: np.ndarray, rows: torch.Tensor, runs) -> None:
+    """Copy each run of ``rows`` (one row an active window) into its
+    rows of the full-grid ``full``, one copy a run; from a card tensor
+    that copy is the download itself.  Counts the copies
+    (``cmc.download_copies``)."""
+    dst = torch.from_numpy(full)
+    for w0, r0, n in runs:
+        dst[w0:w0 + n].copy_(rows[r0:r0 + n])
+    count("cmc.download_copies", len(runs))
+
+
+def _download(device_out: dict, kind, td, n_active: int, full: dict,
+              runs) -> tuple[dict, int]:
+    """The results to the host, in the bytes of one download each:
+    float32 straight into their rows of ``full``, one copy a run; cast
+    to ``td`` on the device first into a host buffer of that type; or
+    through the per-lane quantizer (``coherence.py:427-446``) into
+    dequantized float32 rows.  Returns ({key: the host rows ``full``
+    still lacks}, bytes)."""
     if kind == "int":
-        compact, n_bytes = {}, 0
+        staged, n_bytes = {}, 0
         for key, val in device_out.items():
             # per-(freq, channel) lanes where their sidecars (2·4 bytes a
             # lane) stay under a tenth of the integer payload, judged on
             # the active window count
             fine = 8.0 <= 0.1 * td.itemsize * n_active
-            compact[key], nb, _ = download_quantized(
+            host, nb, _ = download_quantized(
                 val, td, lane_ndim=val.ndim - 1 if fine else 1)
+            staged[key] = torch.from_numpy(host)
             n_bytes += nb
-        return compact, n_bytes
+        return staged, n_bytes
     if kind == "float":
-        device_out = {key: val.to(td) for key, val in device_out.items()}
-    n_bytes = sum(v.numel() * v.element_size() for v in device_out.values())
-    return ({key: val.cpu().to(torch.float32).numpy()
-             for key, val in device_out.items()}, n_bytes)
+        staged = {key: val.to(td).cpu() for key, val in device_out.items()}
+        return staged, sum(v.numel() * v.element_size()
+                           for v in staged.values())
+    for key, val in device_out.items():
+        _write_runs(full[key], val, runs)
+    return {}, sum(v.numel() * v.element_size() for v in device_out.values())
 
 
 def multitaper_msc(
@@ -230,10 +258,17 @@ def multitaper_msc(
     crossed each way, the span records (``spans``: the root ``cmc``;
     ``cmc.plan``, ``cmc.upload``, ``cmc.compute`` with one ``cmc.chunk``
     a window chunk, ``cmc.download``, ``cmc.scatter`` and
-    ``cmc.threshold``) and the ``counters`` (empty: the CMC counts
-    nothing that the keys above do not already give).  The upload and
-    compute spans then end in a synchronise, so that they hold the
-    card's work.  Without it the call reads no clock.
+    ``cmc.threshold``) and the ``counters`` (``cmc.download_copies``, below).
+    The upload and compute spans then end in a synchronise, so that they
+    hold the card's work.  Without it the call reads no clock.
+
+    The results land in full-grid float32 arrays made first with
+    ``np.zeros``: each run of consecutive active windows is written into
+    its rows with one copy a result (``cmc.download_copies`` counts them),
+    so with no mask, or every window active, a float32 result is one
+    download straight into place.  A 16-bit or quantized result downloads
+    as one buffer, and its runs are converted into place on the host,
+    the only work ``cmc.scatter`` holds.
     """
     with recording(collect_timings) as rec, span("cmc"):
         with span("cmc.plan"):
@@ -324,8 +359,15 @@ def multitaper_msc(
             if collect_timings:
                 synchronize(device)
 
-        dl_bytes = 0
+        tail = (n_freqs_out, n_eeg) if aggregate_emg_max \
+            else (n_freqs_out, n_eeg, n_emg)
+        # np.zeros leaves the pages of rows no copy writes untouched
+        full = {key: np.zeros((n_windows,) + tail, np.float32)
+                for key in (("coherence", "ci_lower", "ci_upper")
+                            if use_jackknife else ("coherence",))}
+        staged, dl_bytes = {}, 0
         if n_active > 0:
+            runs = _runs(active)
             with span("cmc.compute"):
                 device_out = _msc_all_windows(
                     eeg, emg, torch.as_tensor(starts[active], device=device),
@@ -337,22 +379,12 @@ def multitaper_msc(
                 if collect_timings:
                     synchronize(device)
             with span("cmc.download"):
-                compact, dl_bytes = _download(device_out, td_kind, td,
-                                              n_active)
-        else:
-            shape_tail = (n_freqs_out, n_eeg) if aggregate_emg_max \
-                else (n_freqs_out, n_eeg, n_emg)
-            compact = {"coherence": np.zeros((0,) + shape_tail, np.float32)}
-            if use_jackknife:
-                compact["ci_lower"] = compact["coherence"].copy()
-                compact["ci_upper"] = compact["coherence"].copy()
+                staged, dl_bytes = _download(device_out, td_kind, td,
+                                             n_active, full, runs)
 
         with span("cmc.scatter"):
-            out_tail = compact["coherence"].shape[1:]
-            full = {key: np.zeros((n_windows,) + out_tail, dtype=np.float32)
-                    for key in compact}
-            for key in compact:
-                full[key][active] = compact[key]
+            for key, rows in staged.items():
+                _write_runs(full[key], rows, runs)
 
         result = {
             "coherence_raw": full["coherence"],

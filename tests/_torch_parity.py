@@ -90,3 +90,103 @@ def coupled_signals(fs=256, seconds=6, n_eeg=2, n_emg=3, seed=1):
     emg = np.stack([shared + 0.8 * rng.standard_normal(len(t))
                     for _ in range(n_emg)], axis=1)
     return eeg, emg
+
+
+# ---- the CMC's result assembly -----------------------------------------
+
+MSC_WINDOWS = 47             # 24 s at 256 Hz, 1-s windows at the half hop
+MSC_MASKS = {
+    "none": None,
+    "all": np.ones(MSC_WINDOWS, bool),
+    "no_window": np.zeros(MSC_WINDOWS, bool),
+    "one_run": np.isin(np.arange(MSC_WINDOWS), np.arange(5, 30)),
+    "runs": np.isin(np.arange(MSC_WINDOWS),
+                    np.r_[0:3, 8:20, 21:22, 30:46]),
+    "alternating": np.arange(MSC_WINDOWS) % 2 == 1,
+    "ends": np.isin(np.arange(MSC_WINDOWS), [0, MSC_WINDOWS - 1]),
+}
+MSC_OPTIONS = {
+    "jackknife": dict(use_jackknife=True),
+    "jackknife_emg_max": dict(use_jackknife=True, aggregate_emg_max=True),
+    "plain": dict(use_jackknife=False),
+    "plain_emg_max": dict(use_jackknife=False, aggregate_emg_max=True),
+    "jackknife_band": dict(use_jackknife=True, freq_range=(8.0, 40.0)),
+    "plain_emg_max_band": dict(use_jackknife=False, aggregate_emg_max=True,
+                               freq_range=(8.0, 40.0)),
+}
+MSC_TRANSFERS = {"float32": None, "bfloat16": torch.bfloat16,
+                 "float16": np.float16, "int16": np.int16, "int8": np.int8}
+
+
+def check_msc_assembly(monkeypatch, device, mask: str, options: str,
+                       transfer: str) -> None:
+    """``multitaper_msc``'s full-grid results against the rule they
+    replaced, bit for bit: each compact result downloaded whole (float32;
+    cast on the device to 16 bits; or through ``download_quantized``,
+    lanes judged on the active windows), then zeros with the active rows
+    set by a fancy index.  The compact results are the call's own,
+    caught as ``_msc_all_windows`` returns them."""
+    from mba_tpu_torch.ops import coherence as TC
+    from mba_tpu_torch.utils.transfer import download_quantized
+
+    caught = {}
+    inner = TC._msc_all_windows
+
+    def catch(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        caught.update({key: val.clone() for key, val in out.items()})
+        return out
+
+    monkeypatch.setattr(TC, "_msc_all_windows", catch)
+    window_mask, td = MSC_MASKS[mask], MSC_TRANSFERS[transfer]
+    eeg, emg = coupled_signals(seconds=24)
+    res = TC.multitaper_msc(eeg, emg, 256, window_length_sec=1.0,
+                            window_mask=window_mask, window_chunk=8,
+                            transfer_dtype=td, collect_timings=True,
+                            device=device, **MSC_OPTIONS[options])
+
+    on = np.ones(MSC_WINDOWS, bool) if window_mask is None else window_mask
+    active = np.flatnonzero(on)
+    n_runs = int(np.sum(on & ~np.r_[False, on[:-1]]))
+    freqs = np.fft.rfftfreq(256, d=1.0 / 256)
+    f0 = int(np.searchsorted(freqs, res["freqs"][0]))
+    f1 = f0 + len(res["freqs"])
+    keys = ("coherence", "ci_lower", "ci_upper") \
+        if MSC_OPTIONS[options]["use_jackknife"] else ("coherence",)
+    tail = (len(res["freqs"]), eeg.shape[1]) \
+        + (() if MSC_OPTIONS[options].get("aggregate_emg_max")
+           else (emg.shape[1],))
+    want, n_bytes = {}, 0
+    for key in keys:
+        full = np.zeros((MSC_WINDOWS,) + tail, np.float32)
+        if len(active):
+            val = caught[key][:, f0:f1]
+            if transfer in ("int16", "int8"):
+                fine = 8.0 <= 0.1 * np.dtype(td).itemsize * len(active)
+                compact, nb, _ = download_quantized(
+                    val, td, lane_ndim=val.ndim - 1 if fine else 1)
+            else:
+                if td is not None:
+                    val = val.to(getattr(torch, transfer))
+                nb = val.numel() * val.element_size()
+                compact = val.cpu().to(torch.float32).numpy()
+            full[active] = compact
+            n_bytes += nb
+        want[key] = full
+
+    names = {"coherence": "coherence_raw", "ci_lower": "coherence_ci_lower",
+             "ci_upper": "coherence_ci_upper"}
+    assert {k for k in names.values() if k in res} == \
+        {names[k] for k in keys}
+    for key in keys:
+        got = res[names[key]]
+        assert got.dtype == np.float32 and got.shape == want[key].shape
+        assert got.flags.c_contiguous and got.flags.owndata, key
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want[key].view(np.uint32), err_msg=key)
+        assert not got[~on].view(np.uint32).any(), key     # +0.0 exactly
+    assert res["metadata"]["n_active_windows"] == len(active)
+    t = res["timings"]
+    assert t["download_bytes"] == n_bytes
+    assert t["counters"].get("cmc.download_copies", 0) == \
+        len(keys) * n_runs

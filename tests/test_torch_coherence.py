@@ -24,7 +24,9 @@ from mba_tpu_torch.ops import cuda_msc
 from mba_tpu_torch.ops import dpss as tdpss
 from mba_tpu_torch.ops import framing as tframing
 
-from _torch_parity import assert_dicts_close, coupled_signals, t32, to_np
+from _torch_parity import (MSC_MASKS, MSC_OPTIONS, MSC_TRANSFERS,
+                           assert_dicts_close, check_msc_assembly,
+                           coupled_signals, t32, to_np)
 
 torch.set_num_threads(1)
 
@@ -281,3 +283,15 @@ class TestMultitaperMsc:
         with pytest.raises(ValueError, match="selects no frequency"):
             TC.multitaper_msc(eeg, emg, 256, freq_range=(500.0, 600.0),
                               device="cpu")
+
+
+@pytest.mark.parametrize("transfer", list(MSC_TRANSFERS))
+@pytest.mark.parametrize("options", list(MSC_OPTIONS))
+@pytest.mark.parametrize("mask", list(MSC_MASKS))
+def test_results_land_in_place_bit_for_bit(monkeypatch, mask, options,
+                                           transfer):
+    """Each run of active windows is copied into its rows of the full
+    grid: the same bits, bytes downloaded and zero rows as a whole
+    download then a fancy-index scatter, and one copy a result and run
+    (``cmc.download_copies``)."""
+    check_msc_assembly(monkeypatch, "cpu", mask, options, transfer)

@@ -39,7 +39,9 @@ from mba_tpu_torch.ops import permutation as TPerm
 from mba_tpu_torch.pipeline import signal_features as TF
 from mba_tpu_torch.pipeline.cbpa import CMC_EEG_CHANNEL_SUBSET
 
-from _torch_parity import cohort_subject, coupled_signals, null_toy, t32
+from _torch_parity import (MSC_MASKS, MSC_OPTIONS, MSC_TRANSFERS,
+                           check_msc_assembly, cohort_subject,
+                           coupled_signals, null_toy, t32)
 
 torch.set_num_threads(1)
 
@@ -446,6 +448,19 @@ def test_msc_kernel_matches_plain_on_card(cuda, ws, nw, nE, nM):
     tol_max = np.take_along_axis(tol, p_idx[..., None], -1)[..., 0]
     for key in KEYS[1:]:
         assert (np.abs(km[key] - pm[key])[same] <= tol_max[same]).all(), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transfer", list(MSC_TRANSFERS))
+@pytest.mark.parametrize("options", list(MSC_OPTIONS))
+@pytest.mark.parametrize("mask", list(MSC_MASKS))
+def test_cmc_results_land_in_place_on_card(cuda, monkeypatch, mask, options,
+                                           transfer):
+    """On the card each run of active windows downloads straight into its
+    rows of the full grid (float32), or its 16-bit or dequantized rows
+    are placed on the host: the same bits, bytes and zero rows as a whole
+    download then a fancy-index scatter, one copy a result and run."""
+    check_msc_assembly(monkeypatch, cuda, mask, options, transfer)
 
 
 @pytest.mark.cuda

@@ -134,11 +134,11 @@ def test_a_raising_block_closes_its_spans_and_the_recorder():
     assert TP._RECORDER.get() is None
 
 
-@pytest.mark.parametrize("mask,chunks,threshold", [
-    (None, 4, False),                      # 15 windows in chunks of 4
-    ("half", 2, True),                     # 8 active windows, threshold
+@pytest.mark.parametrize("mask,chunks,threshold,runs", [
+    (None, 4, False, 1),                   # 15 windows in chunks of 4
+    ("half", 2, True, 8),                  # 8 active windows, threshold
 ])
-def test_cmc_span_tree(mask, chunks, threshold):
+def test_cmc_span_tree(mask, chunks, threshold, runs):
     window_mask = None
     if mask == "half":
         window_mask = np.arange(CMC_WINDOWS) % 2 == 0
@@ -152,7 +152,8 @@ def test_cmc_span_tree(mask, chunks, threshold):
     compute = _names(recs).index("cmc.compute")
     assert _names(recs, compute) == ["cmc.chunk"] * chunks
     n_active = res["metadata"]["n_active_windows"]
-    assert res["timings"]["counters"] == {}
+    # one copy a result (coherence and the two CI bounds) and run
+    assert res["timings"]["counters"] == {"cmc.download_copies": 3 * runs}
     assert chunks == math.ceil(n_active / CMC_KW["window_chunk"])
 
 
