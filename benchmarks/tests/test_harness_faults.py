@@ -8,9 +8,11 @@ import torch
 
 from benchmarks.harness.catalog import Catalog
 from benchmarks.harness.runner import merged, run_cell
-from benchmarks.tests.tiny import tiny
+from benchmarks.tests.tiny import entry_file, faults, reads, tiny
 
-CELLS = [c["name"] for c in Catalog().spec["workloads"]]
+CAT = Catalog()
+CELLS = [c["name"] for c in CAT.spec["workloads"]]
+ENTRY = {c: CAT.traffic(c)["entry"] for c in CELLS}
 
 
 def _entry(cat, cell, seed, device):
@@ -37,59 +39,21 @@ def test_control_fails(cell):
     assert all(control_fails(cell, 2**31 + 17, "cpu"))
 
 
-def _altered_msc(orig):
-    def fn(*a, **k):
-        out = orig(*a, **k)
-        out["coherence"][0, 3, 0] += 1e-3
-        return out
-    return fn
+@pytest.mark.parametrize("entry", sorted(set(ENTRY.values())))
+def test_entry_brings_its_faults(entry):
+    assert faults(CAT, entry), f"{entry_file(CAT, entry)} lists no fault"
 
 
-def _half_tapers(orig):
-    def fn(eeg_fft, emg_fft, *a, **k):
-        h = eeg_fft.shape[1] // 2 + 1
-        return orig(eeg_fft[:, :h].contiguous(), emg_fft[:, :h].contiguous(),
-                    *a, **k)
-    return fn
-
-
-def _altered_null(orig):
-    def fn(*a, **k):
-        ms, counts = orig(*a, **k)
-        ms[0] += 1e-3
-        return ms, counts
-    return fn
-
-
-def _half_subjects(orig):
-    def fn(bases, coefs):
-        h = len(bases) // 2
-        base, _, observed = orig(bases[:h], coefs[:h])
-        return base, orig(bases, coefs)[1], observed
-    return fn
-
-
-FAULTS = {
-    # an answer altered where it is produced
-    "cmc_answer": ("mba_tpu_torch.ops.cuda_msc", "msc_jackknife_plain",
-                   _altered_msc),
-    # half of the batch (the tapers) left out, the mean over the rest
-    "cmc_half": ("mba_tpu_torch.ops.cuda_msc", "msc_jackknife_plain",
-                 _half_tapers),
-    "null_answer": ("mba_tpu_torch.ops.cuda_null", "null_tile_plain",
-                    _altered_null),
-    # half of the batch (the subjects) left out of the cohort mean
-    "null_half": ("mba_tpu_torch.ops.cohort_null", "cohort_epilogue",
-                  _half_subjects),
-}
-CASES = [(c, f) for c in CELLS for f in FAULTS
-         if f.startswith("null") == ("null" in c)]
+# a cell whose entry has no file of its own has no case here, and
+# test_entry_brings_its_faults fails on that entry
+CASES = [(c, f) for c in CELLS if entry_file(CAT, ENTRY[c]).is_file()
+         for f in faults(CAT, ENTRY[c])]
 
 
 @pytest.mark.parametrize("cell, fault", CASES)
 def test_broken_timed_path_is_not_correct(cell, fault, monkeypatch):
     import importlib
-    mod_name, attr, wrap = FAULTS[fault]
+    mod_name, attr, wrap = faults(CAT, ENTRY[cell])[fault]
     mod = importlib.import_module(mod_name)
     monkeypatch.setattr(mod, attr, wrap(getattr(mod, attr)))
     cat = Catalog()
@@ -124,9 +88,13 @@ def test_calibration_tool(cell):
     import sys
     from benchmarks.harness.catalog import ROOT
     cat = Catalog()
-    # the null's second engine against the same reference, as both null
-    # cells' limits were read
-    also = ["--also", '{"coeff_engine": "pallas"}'] if "null" in cell else []
+    # the args of each other cell on the same configuration and entry,
+    # against the same reference, as both null cells' limits were read
+    mine = cat.traffic(cell)
+    also = [a for c in CELLS if c != cell
+            and (cat.traffic(c)["config"], ENTRY[c]) ==
+            (mine["config"], mine["entry"])
+            for a in ("--also", json.dumps(cat.traffic(c)["args"]))]
     out = subprocess.run(
         [sys.executable, "benchmarks/tools/calibrate.py", "--workload", cell,
          "--seeds", "3", "4", "--control-seeds", "1", "--timed-calls", "1",
@@ -138,6 +106,7 @@ def test_calibration_tool(cell):
     kinds = {r["kind"] for r in rows}
     assert {"walls", "program", "control"} <= kinds
     assert ("program_also" in kinds) == bool(also)
+    assert set(reads(cat, mine["entry"])) <= kinds
     for r in rows:
         over = [k for k in limits if k in r and not r[k] <= limits[k]]
         assert (not over) if r["kind"] in ("program", "program_also") else \

@@ -8,8 +8,10 @@ call, then the calls that a run checks (one on each input) held to the
 reference (``program``), and on the first ``--control-seeds`` seeds the
 cell's control held to the same reference (``control``: the reference
 in the precision below the configuration's, or the program's own
-lower-precision path).  Null cells also read the program at
-``compute_dtype=bfloat16`` (``program_bf16``), for the record.
+lower-precision path).  On those seeds the reads that the cell's entry
+lists in ``READS`` of ``tests/entries/<entry>.py`` are made too, for the
+record (the null's program at ``compute_dtype=bfloat16``,
+``program_bf16``).
 ``--also ARGS`` (JSON keyword arguments, repeatable) reads the program
 with those arguments too (``program_also``), against the same reference:
 one reference per call serves every cell that shares the configuration
@@ -31,6 +33,7 @@ import torch  # noqa: E402
 
 from benchmarks.harness.catalog import Catalog  # noqa: E402
 from benchmarks.harness.runner import merged  # noqa: E402
+from benchmarks.tests import tiny  # noqa: E402
 
 
 def main() -> int:
@@ -55,6 +58,7 @@ def main() -> int:
     config = merged(cat.config(cat.cell(args.workload)["config"]),
                     args.overrides.get("config"))
     Entry = cat.entry(traffic["entry"]).Entry
+    asked = list(tiny.reads(cat, traffic["entry"]).items())
     quiet = open(os.devnull, "w")
 
     def emit(**kw):
@@ -77,10 +81,8 @@ def main() -> int:
             for i in range(len(entry.inputs)):
                 reads = [("program", {})] + [("program_also", a)
                                              for a in args.also]
-                if n < args.control_seeds and \
-                        traffic["entry"] == "rotation_null":
-                    reads.append(("program_bf16",
-                                  {"compute_dtype": torch.bfloat16}))
+                if n < args.control_seeds:
+                    reads += asked
                 kepts = [(kind, a, entry.keep(entry.call(i, False, **a)[0]))
                          for kind, a in reads]
                 t0 = time.perf_counter()
