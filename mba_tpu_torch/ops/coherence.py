@@ -260,7 +260,11 @@ def multitaper_msc(
     a window chunk, ``cmc.download``, ``cmc.scatter`` and
     ``cmc.threshold``) and the ``counters`` (``cmc.download_copies``, below).
     The upload and compute spans then end in a synchronise, so that they
-    hold the card's work.  Without it the call reads no clock.
+    hold the card's work.  Without it the call reads no clock.  Called
+    inside another entry point's recording, the call joins it: its
+    ``cmc`` tree nests under the span open there, ``spans`` and
+    ``counters`` are the outer call's tree, and the ``*_sec`` keys sums
+    over it.
 
     The results land in full-grid float32 arrays made first with
     ``np.zeros``: each run of consecutive active windows is written into
@@ -270,7 +274,7 @@ def multitaper_msc(
     as one buffer, and its runs are converted into place on the host,
     the only work ``cmc.scatter`` holds.
     """
-    with recording(collect_timings) as rec, span("cmc"):
+    with recording(collect_timings, join=True) as rec, span("cmc"):
         with span("cmc.plan"):
             if input_transfer not in (None, "int16"):
                 raise ValueError(

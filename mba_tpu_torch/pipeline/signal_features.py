@@ -45,6 +45,7 @@ from mba_tpu_torch.ops.framing import resample_linear
 from mba_tpu_torch.ops.spectral import (multitaper_psd as _multitaper_psd_op,
                                         spectral_snr, amplitude_spectrum)
 from mba_tpu_torch.utils import file_management as filemgmt
+from mba_tpu_torch.utils.profiling import recording, span
 
 FREQUENCY_BANDS = {
     'delta': (0.5, 4),
@@ -296,85 +297,106 @@ def compute_task_wise_aggregated_cmc(
     ``multitaper_msc``: ``np.int16`` downloads the coherence and CI grids
     as per-lane quantized integers (at most half a step of a lane's span,
     ≤ ~8e-6 on [0, 1]) at half the bytes, ``np.int8`` at a quarter.
+
+    ``timings_out`` records the call (``utils.profiling.recording``) and
+    receives its timings: the root ``task_cmc``, ``task_cmc.subset``
+    around the EEG subset's host copy, ``task_cmc.mask`` around the mask
+    built from ``log_frame``, and ``multitaper_msc``'s ``cmc`` tree under
+    the root, as ``spans`` (the root at index 0) and ``counters``;
+    ``multitaper_msc``'s ``*_sec`` and byte keys; ``subset_sec`` and
+    ``mask_sec``, the sums of their spans; and ``K_tapers``.  Without
+    it the call reads no clock.
     """
-    if eeg_channel_subset:
-        inds = [EEG_CHANNEL_IND_DICT[ch] for ch in eeg_channel_subset]
-        print(f"Reducing EEG to {len(eeg_channel_subset)} channels: "
-              f"{eeg_channel_subset}")
-        eeg_array = eeg_array[:, inds]
+    with recording(timings_out is not None) as rec, span("task_cmc"):
+        if eeg_channel_subset:
+            with span("task_cmc.subset"):
+                inds = [EEG_CHANNEL_IND_DICT[ch] for ch in eeg_channel_subset]
+                print(f"Reducing EEG to {len(eeg_channel_subset)} channels: "
+                      f"{eeg_channel_subset}")
+                # np.take copies a host array's columns ~5x faster than
+                # fancy indexing, into the same C-ordered array
+                eeg_array = (np.take(eeg_array, inds, axis=1)
+                             if isinstance(eeg_array, np.ndarray)
+                             else eeg_array[:, inds])
 
-    n_samples_eeg, _ = eeg_array.shape
-    n_samples_emg, _ = emg_array.shape
-    if n_samples_eeg != n_samples_emg:
-        raise ValueError(
-            f"EEG and EMG must have same number of samples. "
-            f"Got EEG: {n_samples_eeg}, EMG: {n_samples_emg}")
-
-    if log_frame is not None and window_mask is None:
-        window_samples = int(window_size_sec * sampling_freq)
-        hop_samples = int(window_samples * (1 - window_overlap_ratio))
-        if hop_samples <= 0:
+        n_samples_eeg, _ = eeg_array.shape
+        n_samples_emg, _ = emg_array.shape
+        if n_samples_eeg != n_samples_emg:
             raise ValueError(
-                "window_overlap_ratio too high: hop_samples becomes <= 0")
-        n_windows = (n_samples_eeg - window_samples) // hop_samples + 1
-        time_centers_preview = ((np.arange(n_windows) * hop_samples
-                                 + window_samples / 2) / sampling_freq)
-        window_mask = _build_task_window_mask(
-            time_centers_preview, log_frame,
-            pre_buffer_sec=pre_trial_computation_buffer_sec,
-            post_buffer_sec=post_trial_computation_buffer_sec,
-            task_latency_assumption_sec=task_latency_assumption_sec,
-            task_end_cutoff_sec=task_end_cutoff_sec)
+                f"EEG and EMG must have same number of samples. "
+                f"Got EEG: {n_samples_eeg}, EMG: {n_samples_emg}")
 
-    # reference applies the significance mask BEFORE the EMG max, so the
-    # fused aggregation is only used when thresholding is off
-    fuse = not enforce_independence_threshold
-    output = multitaper_msc(
-        eeg_array, emg_array, sampling_freq=sampling_freq,
-        window_length_sec=window_size_sec,
-        overlap_frac=window_overlap_ratio,
-        significance_level=independence_threshold_alpha,
-        apply_independence_threshold=enforce_independence_threshold,
-        use_jackknife=use_jackknife, jackknife_alpha=jackknife_alpha,
-        window_mask=window_mask, aggregate_emg_max=fuse, verbose=True,
-        collect_timings=timings_out is not None,
-        transfer_dtype=transfer_dtype, freq_range=freq_range, device=device)
-    if timings_out is not None:
-        timings_out.update(output.get('timings', {}))
-        # the kept taper count: the Beta(K−2, K−2) independence threshold
-        # (reference :470-481) needs it downstream
-        timings_out['K_tapers'] = output['metadata']['K_tapers']
+        if log_frame is not None and window_mask is None:
+            with span("task_cmc.mask"):
+                window_samples = int(window_size_sec * sampling_freq)
+                hop_samples = int(window_samples * (1 - window_overlap_ratio))
+                if hop_samples <= 0:
+                    raise ValueError("window_overlap_ratio too high: "
+                                     "hop_samples becomes <= 0")
+                n_windows = ((n_samples_eeg - window_samples)
+                             // hop_samples + 1)
+                time_centers_preview = ((np.arange(n_windows) * hop_samples
+                                         + window_samples / 2)
+                                        / sampling_freq)
+                window_mask = _build_task_window_mask(
+                    time_centers_preview, log_frame,
+                    pre_buffer_sec=pre_trial_computation_buffer_sec,
+                    post_buffer_sec=post_trial_computation_buffer_sec,
+                    task_latency_assumption_sec=task_latency_assumption_sec,
+                    task_end_cutoff_sec=task_end_cutoff_sec)
 
-    time_centers = output['time_centers']
-    freqs = output['freqs']
+        # reference applies the significance mask BEFORE the EMG max, so
+        # the fused aggregation is only used when thresholding is off
+        fuse = not enforce_independence_threshold
+        output = multitaper_msc(
+            eeg_array, emg_array, sampling_freq=sampling_freq,
+            window_length_sec=window_size_sec,
+            overlap_frac=window_overlap_ratio,
+            significance_level=independence_threshold_alpha,
+            apply_independence_threshold=enforce_independence_threshold,
+            use_jackknife=use_jackknife, jackknife_alpha=jackknife_alpha,
+            window_mask=window_mask, aggregate_emg_max=fuse, verbose=True,
+            collect_timings=rec is not None,
+            transfer_dtype=transfer_dtype, freq_range=freq_range,
+            device=device)
+        if rec is not None:
+            timings_out.update(output['timings'])
+            timings_out['subset_sec'] = rec.seconds('task_cmc.subset')
+            timings_out['mask_sec'] = rec.seconds('task_cmc.mask')
+            # the kept taper count: the Beta(K−2, K−2) independence
+            # threshold (reference :470-481) needs it downstream
+            timings_out['K_tapers'] = output['metadata']['K_tapers']
 
-    if fuse:
-        values = output['coherence_raw']
-        if use_jackknife:
-            values_lower = output['coherence_ci_lower']
-            values_upper = output['coherence_ci_upper']
-    else:
-        masked = np.where(output['coherence_significant'],
-                          output['coherence_raw'], 0.0)
-        if use_jackknife:
-            values, values_lower, values_upper = \
-                max_cmc_over_channels(masked,
-                                      output['coherence_ci_lower'],
-                                      output['coherence_ci_upper'])
+        time_centers = output['time_centers']
+        freqs = output['freqs']
+
+        if fuse:
+            values = output['coherence_raw']
+            if use_jackknife:
+                values_lower = output['coherence_ci_lower']
+                values_upper = output['coherence_ci_upper']
         else:
-            values = max_cmc_over_channels(masked)
+            masked = np.where(output['coherence_significant'],
+                              output['coherence_raw'], 0.0)
+            if use_jackknife:
+                values, values_lower, values_upper = \
+                    max_cmc_over_channels(masked,
+                                          output['coherence_ci_lower'],
+                                          output['coherence_ci_upper'])
+            else:
+                values = max_cmc_over_channels(masked)
 
-    if save_dir is not None:
-        channel_suffix = (f"Channels_{'_'.join(eeg_channel_subset)}"
-                          if eeg_channel_subset else "All_Channels")
-        label = (f"{muscle_group.capitalize()} CMC"
-                 f"{' Trial-wise' if window_mask is not None else ''}")
-        save_spectrograms(values, time_centers, freqs, save_dir=save_dir,
-                          modality=label, identifier_suffix=channel_suffix)
+        if save_dir is not None:
+            channel_suffix = (f"Channels_{'_'.join(eeg_channel_subset)}"
+                              if eeg_channel_subset else "All_Channels")
+            label = (f"{muscle_group.capitalize()} CMC"
+                     f"{' Trial-wise' if window_mask is not None else ''}")
+            save_spectrograms(values, time_centers, freqs, save_dir=save_dir,
+                              modality=label, identifier_suffix=channel_suffix)
 
-    if use_jackknife:
-        return values, values_lower, values_upper, time_centers, freqs
-    return values, time_centers, freqs
+        if use_jackknife:
+            return values, values_lower, values_upper, time_centers, freqs
+        return values, time_centers, freqs
 
 
 # --------------------------------------------------------------------------
