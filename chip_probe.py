@@ -8,6 +8,7 @@ permanent run.
     python3 chip_probe.py mesh-reference
     python3 chip_probe.py coeff-dispatch --parent DIR [--repeats N]
     python3 chip_probe.py coeff-split [--parent DIR] [--repeats N]
+    python3 chip_probe.py upload-rates [--repeats N]
 
 ``reml-profile``: one ``lme._REML_BLOCK``-response block of the power
 grid's RQ-A Level-1 design (``chip_smoke.make_statistics_frame``) under
@@ -63,6 +64,19 @@ without storing the sums; and, given ``--parent DIR``, DIR's source as
 it is.  The first three forms and DIR's compute the sums, the others are
 timings, not results.  Each form reports the registers and spills ptxas
 gives ``coeff_pairs_rt_kernel``.
+
+``upload-rates``: what bounds the upload of one study subject (a
+1698-s session of 64 EEG and 64 EMG channels at 2048 Hz, two float32
+arrays of 890 MB in pageable memory) to the card, in GB/s, N times
+each: CUDA's pageable copy (``Tensor.to``); the host's copy into
+pinned memory at 1, 2, 4 and all usable threads, each thread copying
+its share in one call; the pinned transfer alone; the caller's pages
+locked in place (``cudaHostRegister``: lock, transfer, unlock); the
+staged upload (``mba_tpu_torch._device.upload`` through
+``_staging``, until its event) at the ring's constants and at other
+chunk sizes, buffers a thread and thread counts; and, for the staging
+threshold, the plain and the staged ``to_device`` of one array of 1 MB
+to 128 MB, until the card has it (median seconds of N × 4 calls).
 
 Each prints one JSON line with the card's name and power limit.
 """
@@ -446,12 +460,164 @@ def coeff_split(smoke, repeats: int, parent: Path | None) -> dict:
             "ptxas": ptxas, "sums_equal_to_as_is": same}
 
 
+def _gbps(nbytes: int, fn, repeats: int) -> list:
+    """nbytes / the seconds of each of ``repeats`` calls of ``fn`` (the
+    card synchronised around each), in GB/s."""
+    import torch
+    out = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(nbytes / (time.perf_counter() - t0) / 1e9)
+    return out
+
+
+def upload_rates(repeats: int) -> dict:
+    import functools
+    import statistics
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from mba_tpu_torch import _device, _staging
+    dev = torch.device("cuda")
+    n = 1698 * 2048
+    rng = np.random.default_rng(0)
+    subject = [rng.standard_normal((n, 64), dtype=np.float32)
+               for _ in range(2)]
+    nbytes = sum(x.nbytes for x in subject)
+    out = {"subject_bytes": nbytes, "threads": _staging.threads(),
+           "chunk_bytes": _staging.CHUNK_BYTES,
+           "buffers_per_thread": _staging.BUFFERS_PER_THREAD,
+           "stage_min_bytes": _device.STAGE_MIN_BYTES,
+           "torch_threads": torch.get_num_threads()}
+
+    def pageable():
+        for x in subject:
+            torch.from_numpy(x).to(dev)
+    out["pageable_gbps"] = _gbps(nbytes, pageable, repeats)
+
+    flat = [x.reshape(-1).view(np.uint8) for x in subject]
+    pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    whole = pinned.numpy()
+
+    def host_copy(threads):
+        """Each of ``threads`` threads copies its share of the subject
+        into a pinned buffer of the subject's size, in one copy."""
+        pool = ThreadPoolExecutor(threads)
+        jobs, off = [], 0
+        for src in flat:
+            step = -(-src.shape[0] // threads)
+            jobs += [(off + a, src[a:a + step])
+                     for a in range(0, src.shape[0], step)]
+            off += src.shape[0]
+
+        def run():
+            list(pool.map(lambda j: np.copyto(
+                whole[j[0]:j[0] + j[1].shape[0]], j[1]), jobs))
+        rates = _gbps(nbytes, run, repeats)
+        pool.shutdown()
+        return rates
+    counts = sorted({1, 2, 4, _staging.threads()})
+    out["host_copy_gbps"] = {t: host_copy(t) for t in counts}
+
+    dst = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    out["pinned_dma_gbps"] = _gbps(
+        nbytes, lambda: dst.copy_(pinned, non_blocking=True), repeats)
+    del pinned, whole
+
+    # the caller's own pages locked in place (no host copy), for the
+    # link's bound: lock, transfer, unlock
+    cudart = torch.cuda.cudart()
+    reg = {"register_s": [], "dma_gbps": [], "unregister_s": []}
+    try:
+        x = flat[0]
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            err = cudart.cudaHostRegister(x.ctypes.data, x.nbytes, 0)
+            reg["register_s"].append(time.perf_counter() - t0)
+            if int(err) != 0:
+                reg["error"] = str(err)
+                break
+            t = torch.from_numpy(x)
+            reg["dma_gbps"] += _gbps(x.nbytes, lambda: dst[:x.nbytes].copy_(
+                t, non_blocking=True), 1)
+            t0 = time.perf_counter()
+            cudart.cudaHostUnregister(x.ctypes.data)
+            reg["unregister_s"].append(time.perf_counter() - t0)
+    except Exception as e:                      # noqa: BLE001
+        reg["error"] = repr(e)
+    out["host_register"] = reg
+    del dst
+
+    def staged():
+        up = _device.upload(subject, dev)
+        up.wait()
+        return up.take()
+    got = staged()
+    out["staged_bit_for_bit"] = all(
+        torch.equal(t.cpu(), torch.from_numpy(x)) for t, x in zip(got, subject))
+    del got
+    out["staged_gbps"] = _gbps(nbytes, staged, repeats)
+
+    # the ring at other constants: a fresh ring each
+    saved = (_staging.CHUNK_BYTES, _staging.BUFFERS_PER_THREAD,
+             _staging.threads, _staging._pool, dict(_staging._RINGS))
+    variants = {}
+    try:
+        for chunk_mb, per, threads in ((4, 2, 0), (16, 2, 0), (32, 2, 0),
+                                       (8, 3, 0), (8, 2, 4), (8, 2, 6)):
+            threads = threads or saved[2]()
+            _staging.CHUNK_BYTES = chunk_mb << 20
+            _staging.BUFFERS_PER_THREAD = per
+            _staging.threads = functools.cache(lambda t=threads: t)
+            _staging._pool = functools.cache(
+                lambda t=threads: ThreadPoolExecutor(t))
+            _staging._RINGS.clear()
+            staged()
+            variants[f"chunk{chunk_mb}MB_per{per}_threads{threads}"] = \
+                _gbps(nbytes, staged, repeats)
+    finally:
+        (_staging.CHUNK_BYTES, _staging.BUFFERS_PER_THREAD,
+         _staging.threads, _staging._pool) = saved[:4]
+        _staging._RINGS.clear()
+        _staging._RINGS.update(saved[4])
+    out["staged_variants_gbps"] = variants
+
+    threshold = _device.STAGE_MIN_BYTES
+    cross = {}
+    try:
+        for size in (1 << 20, 1 << 22, 1 << 23, 1 << 24, 1 << 25, 1 << 26,
+                     1 << 27):
+            x = rng.standard_normal(size // 4, dtype=np.float32)
+            row = {}
+            for path, stage_min in (("plain", size + 1), ("staged", 0)):
+                _device.STAGE_MIN_BYTES = stage_min
+                secs = []
+                for _ in range(4 * repeats):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    _device.to_device(x, dev)
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t0)
+                row[path] = statistics.median(secs)
+            cross[size] = row
+    finally:
+        _device.STAGE_MIN_BYTES = threshold
+    out["to_device_median_s"] = cross
+    return {"probe": "upload-rates", **out}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("probe", choices=("reml-profile", "fft-null",
                                           "null-tile-split",
                                           "mesh-reference",
-                                          "coeff-dispatch", "coeff-split"))
+                                          "coeff-dispatch", "coeff-split",
+                                          "upload-rates"))
     parser.add_argument("--tree", type=Path,
                         default=Path(__file__).resolve().parent)
     parser.add_argument("--repeats", type=int, default=10)
@@ -478,6 +644,8 @@ def main() -> int:
     elif args.probe == "coeff-dispatch":
         out = coeff_dispatch(smoke, args.parent.resolve(),
                              min(args.repeats, 3))
+    elif args.probe == "upload-rates":
+        out = upload_rates(args.repeats)
     else:
         out = coeff_split(smoke, min(args.repeats, 3),
                           args.parent.resolve() if args.parent else None)

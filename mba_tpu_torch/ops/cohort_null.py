@@ -48,8 +48,9 @@ import numpy as np
 import torch
 
 from mba_tpu_torch import _dist
-from mba_tpu_torch._device import (dtype_name, entry_device, synchronize,
-                                   to_device)
+from mba_tpu_torch._device import (Upload, dtype_name, entry_device,
+                                   synchronize, to_device, upload,
+                                   wait_stream)
 from mba_tpu_torch._dist import check_mesh, flat_index, mesh_entry_device
 from mba_tpu_torch.native.quantize import (quantize_int8_per_channel,
                                            quantize_int16_per_channel)
@@ -299,6 +300,12 @@ def _nbytes(x: torch.Tensor) -> int:
     return x.numel() * x.element_size()
 
 
+def _quantized(quantize, x) -> torch.Tensor:
+    """``quantize(x)``, spanned as ``null.quantize``."""
+    with span("null.quantize"):
+        return quantize(x)
+
+
 def _window_set(window_starts, window_weights, J: int, n_samples: int,
                 window_samples: int, hop: int, sampling_freq: float):
     """(J, W) int64 starts and float32 weights; by default the full
@@ -502,24 +509,34 @@ def cohort_msc_rotation_null(
                 window_samples, lo, hi, wc, engine=engine,
                 per_window=per_window)
 
-        def link(x) -> torch.Tensor:
-            """``x`` on the device, converted on the host first where
-            ``transfer_dtype`` asks for it (spanned apart:
+        def link(*xs) -> Upload:
+            """``xs`` on their way to the device, converted on the host
+            first where ``transfer_dtype`` asks for it (spanned apart:
             null.quantize)."""
-            if quantize is None:
-                return to_device(x, device)
-            with span("null.quantize"):
-                x = quantize(x)
-            return x.to(device)
+            if quantize is not None:
+                xs = [_quantized(quantize, x) for x in xs]
+            return upload(xs, device)
+
+        def subject_upload(j) -> Upload:
+            """Subject j's signals on the device: the ``null.upload``
+            span closes when their bytes are there (at the copy's event,
+            not a device-wide synchronise)."""
+            with span("null.upload"):
+                up = link(eeg_cohort[j], emg_cohort[j])
+                up.wait()
+            return up
 
         upload_bytes = 0
         bases, coefs = [], []
         if mesh is not None or (overlap_upload and not per_window):
-            # one subject at a time: upload, then its coefficient pass.
-            # Under a mesh (cohort_null.py:667-713, :1115-1155) flat rank r
-            # takes subjects r·jl … (r+1)·jl − 1 of the cohort padded to
-            # n_ranks·jl by repeating the last subject; the passes are
-            # gathered and the pad rows dropped before the epilogue
+            # one subject at a time: subject j's pass is queued, then
+            # subject j + 1 goes up on the copy stream under it (its
+            # null.upload span nested in pass j's null.coeffs), then the
+            # host waits for pass j.  Under a mesh (cohort_null.py:667-713,
+            # :1115-1155) flat rank r takes subjects r·jl … (r+1)·jl − 1
+            # of the cohort padded to n_ranks·jl by repeating the last
+            # subject; the passes are gathered and the pad rows dropped
+            # before the epilogue
             if mesh is None:
                 subjects = range(J)
             else:
@@ -527,18 +544,19 @@ def cohort_msc_rotation_null(
                 r = flat_index(mesh)
                 subjects = [min(j, J - 1)
                             for j in range(r * jl, (r + 1) * jl)]
-            for j in subjects:
-                with span("null.upload"):
-                    eeg_j = link(eeg_cohort[j])
-                    emg_j = link(emg_cohort[j])
-                    synchronize(device)
+            up = subject_upload(subjects[0])
+            for i, j in enumerate(subjects):
+                eeg_j, emg_j = up.take()
                 upload_bytes += _nbytes(eeg_j) + _nbytes(emg_j)
                 with span("null.coeffs"):
                     b, c = subject_coeffs(eeg_j, emg_j, j)
                     bases.append(b)
                     coefs.append(c)
                     del eeg_j, emg_j
-                    synchronize(device)
+                    if i + 1 < len(subjects):
+                        up = subject_upload(subjects[i + 1])
+                    wait_stream(device)
+            synchronize(device)
             if mesh is not None:
                 with span("null.gather"):
                     bases = list(torch.cat(_dist.gather(torch.stack(bases),
@@ -549,8 +567,7 @@ def cohort_msc_rotation_null(
         else:
             # fused (cohort_null.py:1059-1080): the whole cohort first
             with span("null.upload"):
-                eeg_d = link(eeg_cohort)
-                emg_d = link(emg_cohort)
+                eeg_d, emg_d = link(eeg_cohort, emg_cohort).take()
                 synchronize(device)
             upload_bytes = _nbytes(eeg_d) + _nbytes(emg_d)
             with span("null.coeffs"):

@@ -190,3 +190,37 @@ def check_msc_assembly(monkeypatch, device, mask: str, options: str,
     assert t["download_bytes"] == n_bytes
     assert t["counters"].get("cmc.download_copies", 0) == \
         len(keys) * n_runs
+
+
+NULL_UPLOAD_KEYS = ("observed", "max_stat", "p_uncorrected", "p_fwe")
+
+
+def null_across_upload_paths(device, coeff_engine, seconds=100.0):
+    """The cohort rotation null of three subjects (64×64 at 2048 Hz,
+    ``seconds`` each: 52 MB an array at 100 s, six chunks of the staging
+    ring and a part) on ``device``, run by upload path: the plain copy
+    (every array under the staging threshold), then staged with
+    ``overlap_upload`` True and False.  {path: the results of
+    ``NULL_UPLOAD_KEYS``}, as numpy."""
+    from mba_tpu_torch import _device
+    from mba_tpu_torch.ops import cohort_null as TN
+    rng = np.random.default_rng(11)
+    n = int(2048 * seconds)
+    drive = rng.standard_normal((3, n, 1)).astype(np.float32)
+    eeg = rng.standard_normal((3, n, 64), dtype=np.float32) + 0.3 * drive
+    emg = rng.standard_normal((3, n, 64), dtype=np.float32) + 0.3 * drive
+    kw = dict(n_surrogates=300, surrogate_chunk=100, band=(13.0, 100.0),
+              coeff_engine=coeff_engine, seed=5, device=device)
+    out, threshold = {}, _device.STAGE_MIN_BYTES
+    try:
+        for path, overlap, stage_min in (("plain", True, eeg[0].nbytes + 1),
+                                         ("staged", True, threshold),
+                                         ("staged_fused", False, threshold)):
+            _device.STAGE_MIN_BYTES = stage_min
+            res = TN.cohort_msc_rotation_null(eeg, emg, 2048.0,
+                                              overlap_upload=overlap, **kw)
+            out[path] = {k: np.asarray(res[k]) for k in NULL_UPLOAD_KEYS}
+            out[path]["counters"] = res["metadata"]["timings"]["counters"]
+    finally:
+        _device.STAGE_MIN_BYTES = threshold
+    return out

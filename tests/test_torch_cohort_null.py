@@ -22,7 +22,8 @@ from mba_tpu_torch.ops import cohort_null as TN
 from mba_tpu_torch.ops import cuda_null
 from mba_tpu_torch.ops.gram_coeffs import gram_coeffs_subject as port_gram
 
-from _torch_parity import cohort_subject, jax_phases, null_toy, t32
+from _torch_parity import (NULL_UPLOAD_KEYS, cohort_subject, jax_phases,
+                           null_across_upload_paths, null_toy, t32)
 
 torch.set_num_threads(1)
 
@@ -428,3 +429,23 @@ def test_null_chunk_pw_16bit_padded_cells_match_jax(compute_dtype):
         TN.window_phases(np.asarray(key), Wp, J, S, K, nF, "cpu"), state)
     np.testing.assert_allclose(ms.numpy(), np.asarray(ms_ref), rtol=1e-5)
     np.testing.assert_array_equal(c.numpy(), np.asarray(c_ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("coeff_engine", ["auto", "pallas"])
+def test_null_results_do_not_depend_on_the_upload_path(coeff_engine):
+    """On the card, the null's results are bit for bit the same whether
+    its cohort goes up by the plain copy or through the staging ring,
+    one subject at a time under the previous subject's pass
+    (``overlap_upload=True``) or the whole cohort first."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: nothing is staged on the CPU")
+    runs = null_across_upload_paths("cuda", coeff_engine)
+    assert "upload.staged_bytes" not in runs["plain"]["counters"]
+    for path in ("staged", "staged_fused"):
+        c = runs[path]["counters"]
+        assert c["upload.staged_bytes"] == c["upload.bytes"] > 0
+        for key in NULL_UPLOAD_KEYS:
+            np.testing.assert_array_equal(runs[path][key],
+                                          runs["plain"][key],
+                                          err_msg=f"{path} {key}")

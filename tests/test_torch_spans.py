@@ -14,6 +14,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from mba_tpu_torch import _device as TD
 from mba_tpu_torch.ops import coherence as TC
 from mba_tpu_torch.ops import cohort_null as TN
 from mba_tpu_torch.ops.gram_coeffs import GRAM_CHUNK
@@ -178,9 +179,15 @@ def test_null_span_tree(overlap_upload, rotation_mode):
     # the per-window mode uploads the whole cohort first, as before
     per_subject = overlap_upload and rotation_mode == "shared"
     n = NULL_J if per_subject else 1
-    assert _names(recs, 0) == (["null.plan"]
-                               + ["null.upload", "null.coeffs"] * n
+    assert _names(recs, 0) == (["null.plan", "null.upload"]
+                               + ["null.coeffs"] * n
                                + ["null.epilogue", "null.surrogates"])
+    # one upload and one pass a subject; subject j + 1's upload nested in
+    # subject j's pass, which it runs under
+    assert _names(recs).count("null.upload") == n
+    passes = [i for i, r in enumerate(recs) if r[0] == "null.coeffs"]
+    assert [_names(recs, i) for i in passes] == \
+        [["null.upload"]] * (n - 1) + [[]]
     surr = _names(recs).index("null.surrogates")
     assert _names(recs, surr) == ["null.chunk"] * NULL_CHUNKS
     assert res["metadata"]["n_surrogates_drawn"] == NULL_CHUNKS * 16
@@ -191,8 +198,9 @@ def test_null_span_tree(overlap_upload, rotation_mode):
 def test_null_precompute_only_stops_after_the_epilogue():
     t = _null(precompute_only=True)["metadata"]["timings"]
     _assert_tree(t["spans"], "null")
-    assert _names(t["spans"], 0) == ["null.plan"] \
-        + ["null.upload", "null.coeffs"] * NULL_J + ["null.epilogue"]
+    assert _names(t["spans"], 0) == ["null.plan", "null.upload"] \
+        + ["null.coeffs"] * NULL_J + ["null.epilogue"]
+    assert _names(t["spans"]).count("null.upload") == NULL_J
     assert "null.chunk" not in _names(t["spans"])
 
 
@@ -241,10 +249,33 @@ def test_upload_bytes_counter(overlap_upload, transfer_dtype):
     assert t["upload_bytes"] == (eeg.size + emg.size) * size
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("overlap_upload", [True, False])
+def test_upload_counters_on_the_card(overlap_upload):
+    """Each subject's arrays at 2048 Hz × 64 channels × 40 s (21 MB,
+    over the staging threshold) all go through the staging ring: the
+    staged bytes are the uploaded bytes and the ``upload_bytes`` key."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: nothing is staged on the CPU")
+    rng = np.random.default_rng(4)
+    eeg, emg = (rng.standard_normal((NULL_J, 40 * 2048, 64),
+                                    dtype=np.float32) for _ in range(2))
+    assert eeg[0].nbytes >= TD.STAGE_MIN_BYTES
+    t = TN.cohort_msc_rotation_null(
+        eeg, emg, 2048.0, overlap_upload=overlap_upload,
+        **{**NULL_KW, "device": "cuda"})["metadata"]["timings"]
+    c = t["counters"]
+    assert c["upload.staged_bytes"] == c["upload.bytes"] == \
+        t["upload_bytes"] == eeg.nbytes + emg.nbytes
+    assert _names(t["spans"]).count("null.upload") == \
+        (NULL_J if overlap_upload else 1)
+
+
 # ---- the legacy timings as sums of spans -------------------------------
 
-def _span_sum(records, *names):
-    return sum(r[3] - r[2] for r in records if r[0] in names)
+def _span_sum(records, *names, parent=None):
+    return sum(r[3] - r[2] for r in records if r[0] in names
+               and (parent is None or r[1] == parent))
 
 
 @pytest.mark.parametrize("kw", [
@@ -261,8 +292,10 @@ def test_null_timings_are_sums_of_spans(kw):
     plan, epilogue = (next(r for r in recs if r[0] == name)
                       for name in ("null.plan", "null.epilogue"))
     assert t["precompute_sec"] == epilogue[3] - plan[3]
+    # (an upload nested in a pass counted once)
     assert t["precompute_sec"] >= _span_sum(
-        recs, "null.upload", "null.coeffs", "null.gather", "null.epilogue")
+        recs, "null.upload", "null.coeffs", "null.gather", "null.epilogue",
+        parent=0)
     if "transfer_dtype" in kw:
         assert _names(recs).count("null.quantize") == 2 * NULL_J
         assert 0.0 < t["quantize_sec"] < t["upload_sec"]
@@ -376,7 +409,8 @@ def test_cmc_synchronises_and_ranges(monkeypatch, profiler,
 
 @pytest.mark.parametrize("profiler", [False, True])
 @pytest.mark.parametrize("overlap_upload,syncs", [
-    (True, 2 * NULL_J),           # after each subject's upload and pass
+    (True, 1),                    # after the last pass (the copy's events
+                                  # and the stream close each subject)
     (False, 2)])                  # after the cohort's upload and passes
 def test_null_synchronises_and_ranges(monkeypatch, profiler,
                                       overlap_upload, syncs):
