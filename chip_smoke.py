@@ -200,8 +200,7 @@ from mba_tpu_torch.ops import spectral as TS
 from mba_tpu_torch.ops import surrogate as TSu
 from mba_tpu_torch.ops import wavelet as TW
 from mba_tpu_torch.ops.dpss import filtered_tapers
-from mba_tpu_torch.ops.framing import frame_signal, window_grid
-from mba_tpu_torch.ops.rotation_coeffs import band_spectra
+from mba_tpu_torch.ops.framing import band_spectra, frame_signal, window_grid
 from mba_tpu_torch.pipeline import preprocessing as TP
 from mba_tpu_torch.pipeline import signal_features as TF
 from mba_tpu_torch.pipeline.cbpa import CMC_EEG_CHANNEL_SUBSET
@@ -887,7 +886,7 @@ def coeff_chunks(cohort, device, nw=NW):
         cs = torch.as_tensor(starts[c0:c0 + WINDOW_CHUNK], device=device)
         w = torch.as_tensor(weights[c0:c0 + WINDOW_CHUNK], device=device)
         e, m = (band_spectra(torch.from_numpy(x[0]).to(device), cs, tapers,
-                             ws, lo, hi) for x in cohort)
+                             ws, lo, hi).contiguous() for x in cohort)
         chunks.append((e, m, w))
     return chunks
 

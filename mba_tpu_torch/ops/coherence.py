@@ -34,7 +34,8 @@ from mba_tpu_torch.ops.cuda_msc import (coherence_ratio, fisher_atanh,
                                         inverse_fisher_atanh, msc_jackknife)
 from mba_tpu_torch.ops.dpss import (cmc_independence_threshold_host,
                                     filtered_tapers)
-from mba_tpu_torch.ops.framing import frame_signal, window_grid
+from mba_tpu_torch.ops.framing import (frame_signal, tapered_rfft,
+                                        window_grid)
 from mba_tpu_torch.utils.profiling import count, recording, span
 from mba_tpu_torch.utils.transfer import download_quantized
 
@@ -52,14 +53,6 @@ def jackknife_t_crit(K: int, alpha: float) -> float:
     """Two-sided Student-t critical value of the K-taper jackknife CI,
     rounded to float32 as the kernels take it."""
     return float(np.float32(_t_dist.ppf(1 - alpha / 2, K - 1)))
-
-
-def tapered_rfft(frames: torch.Tensor, tapers: torch.Tensor
-                 ) -> torch.Tensor:
-    """(w, S, C) frames × (K, S) tapers → (w, K, F, C) complex64 spectra,
-    contiguous."""
-    x = frames[:, None, :, :] * tapers[None, :, :, None]
-    return torch.fft.rfft(x, dim=2).contiguous()
 
 
 def _msc_chunk(eeg_frames: torch.Tensor, emg_frames: torch.Tensor,

@@ -55,16 +55,15 @@ from mba_tpu_torch._dist import check_mesh, flat_index, mesh_entry_device
 from mba_tpu_torch.native.quantize import (quantize_int8_per_channel,
                                            quantize_int16_per_channel)
 from mba_tpu_torch.ops import cuda_prng, prng
-from mba_tpu_torch.ops.cuda_coeffs import _F32_TINY
+from mba_tpu_torch.ops.cuda_coeffs import _F32_TINY, _pair_indices
 from mba_tpu_torch.ops.cuda_null import (feature_rows, null_epilogue,
                                          null_features, null_tile,
                                          null_tile_plain,
                                          prepare_null_coeffs)
 from mba_tpu_torch.ops.dpss import filtered_tapers
-from mba_tpu_torch.ops.framing import window_grid
-from mba_tpu_torch.ops.gram_coeffs import _pair_indices, gram_coeffs_subject
-from mba_tpu_torch.ops.rotation_coeffs import (band_spectra, pad_windows,
-                                               rotation_coeffs_subject)
+from mba_tpu_torch.ops.framing import band_spectra, pad_windows, window_grid
+from mba_tpu_torch.ops.gram_coeffs import gram_coeffs_subject
+from mba_tpu_torch.ops.rotation_coeffs import rotation_coeffs_subject
 from mba_tpu_torch.utils.profiling import count, recording, span
 
 # cohort_msc_null's default flop budget for the full-FFT engine, by
@@ -87,12 +86,13 @@ def compute_dtype_of(compute_dtype) -> torch.dtype:
 
 def upload_quantizer(transfer_dtype, eeg_cohort, emg_cohort):
     """The host conversion of a float cohort for ``transfer_dtype``
-    (``cohort_null.py:1034-1056``) into a CPU tensor, or None where the
-    cohort travels as it is: no ``transfer_dtype`` or float32, tensors
-    (their caller owns placement and precision), or integer ADC counts
-    already of the integer ``transfer_dtype`` (the passthrough).
-    int16/int8 quantize per (subject, channel) peak, float16/bfloat16
-    cast."""
+    (``cohort_null.py:1034-1056``), or None where the cohort travels as
+    it is: no ``transfer_dtype`` or float32, tensors (their caller owns
+    placement and precision), or integer ADC counts already of the
+    integer ``transfer_dtype`` (the passthrough).  int16/int8 quantize
+    per (subject, channel) peak into a numpy array, which
+    ``_device.upload`` takes by the same route as a float32 one;
+    float16/bfloat16 cast into a CPU tensor (numpy has no bfloat16)."""
     name = "float32" if transfer_dtype is None else dtype_name(transfer_dtype)
     if name == "float32" or any(
             isinstance(x, torch.Tensor) for x in (eeg_cohort, emg_cohort)):
@@ -103,7 +103,7 @@ def upload_quantizer(transfer_dtype, eeg_cohort, emg_cohort):
             return None
         quant = (quantize_int16_per_channel if name == "int16"
                  else quantize_int8_per_channel)
-        return lambda x: torch.from_numpy(quant(np.asarray(x, np.float32)))
+        return lambda x: quant(np.asarray(x, np.float32))
     if name not in ("float16", "bfloat16"):
         raise ValueError("transfer_dtype must be float16, bfloat16, int16, "
                          f"int8, float32 or None, got {transfer_dtype!r}")
@@ -342,7 +342,6 @@ def cohort_msc_rotation_null(
         p_value_windows: str = "disjoint",
         rotation_mode: str = "shared",
         per_window_max_coef_bytes: int = 2 * 1024 ** 3,
-        overlap_upload: bool = True,
         precompute_only: bool = False,
         coeff_engine: str = "auto",
         verbose: bool = False,
@@ -374,8 +373,7 @@ def cohort_msc_rotation_null(
     Every call is recorded (``utils.profiling.recording``):
     ``timings['spans']`` holds the records of the root ``null``,
     ``null.plan``, one ``null.upload`` (with ``null.quantize`` inside
-    where the host converts) and one ``null.coeffs`` a subject (one of
-    each for the whole cohort where ``overlap_upload`` is False),
+    where the host converts) and one ``null.coeffs`` a subject,
     ``null.gather`` under a mesh, ``null.epilogue``, and
     ``null.surrogates`` with one ``null.chunk`` a surrogate chunk;
     ``timings['counters']`` the windows the coefficient pass frames,
@@ -395,22 +393,23 @@ def cohort_msc_rotation_null(
     latter two.  ``rotation_mode='per_window'`` always runs the plain
     chunked pass, with the window axis kept (metadata ``'xla'``), and
     needs ``p_value_windows='disjoint'`` and at most
-    ``per_window_max_coef_bytes`` of coefficients.
-    ``overlap_upload=True`` uploads and processes one subject at a time;
-    ``False`` uploads the whole cohort first, then runs the passes.
+    ``per_window_max_coef_bytes`` of coefficients.  Every mode uploads
+    and processes one subject at a time, subject j + 1 going up under
+    subject j's pass (the JAX function's whole-cohort upload is not
+    ported).
 
     ``mesh``: a ``DeviceMesh`` of ``parallel.make_mesh`` (anything else
     raises ``TypeError``); every rank calls with the same arguments and
     gets the whole result.  The coefficient pass is sharded by subject
     over the mesh's flat ranks (the cohort padded by repeating its last
     subject; each rank uploads and runs only its own subjects, one at a
-    time, whatever ``overlap_upload`` says), then all-gathered.  Each
-    round of the surrogate loop, flat rank r draws its chunk from
-    ``split(sub, n_ranks)[r]`` as the JAX mesh does, runs the surrogate
-    tile, and the ranks all-reduce their count increments and all-gather
-    their maxima: ``n_ranks · surrogate_chunk`` surrogates a round.  The
-    mesh decides the device (a ``device`` naming another raises), and
-    the per-window mode refuses a mesh, as in the JAX package.
+    time), then all-gathered.  Each round of the surrogate loop, flat
+    rank r draws its chunk from ``split(sub, n_ranks)[r]`` as the JAX
+    mesh does, runs the surrogate tile, and the ranks all-reduce their
+    count increments and all-gather their maxima: ``n_ranks ·
+    surrogate_chunk`` surrogates a round.  The mesh decides the device
+    (a ``device`` naming another raises), and the per-window mode
+    refuses a mesh, as in the JAX package.
     """
     with recording() as rec, span("null"):
         with span("null.plan"):
@@ -509,73 +508,54 @@ def cohort_msc_rotation_null(
                 window_samples, lo, hi, wc, engine=engine,
                 per_window=per_window)
 
-        def link(*xs) -> Upload:
-            """``xs`` on their way to the device, converted on the host
-            first where ``transfer_dtype`` asks for it (spanned apart:
-            null.quantize)."""
-            if quantize is not None:
-                xs = [_quantized(quantize, x) for x in xs]
-            return upload(xs, device)
-
         def subject_upload(j) -> Upload:
-            """Subject j's signals on the device: the ``null.upload``
-            span closes when their bytes are there (at the copy's event,
-            not a device-wide synchronise)."""
+            """Subject j's signals on the device, converted on the host
+            first where ``transfer_dtype`` asks for it (spanned apart:
+            null.quantize): the ``null.upload`` span closes when their
+            bytes are there (at the copy's event, not a device-wide
+            synchronise)."""
             with span("null.upload"):
-                up = link(eeg_cohort[j], emg_cohort[j])
+                xs = (eeg_cohort[j], emg_cohort[j])
+                if quantize is not None:
+                    xs = [_quantized(quantize, x) for x in xs]
+                up = upload(xs, device)
                 up.wait()
             return up
 
+        # one subject at a time: subject j's pass is queued, then subject
+        # j + 1 goes up on the copy stream under it (its null.upload span
+        # nested in pass j's null.coeffs), then the host waits for pass j.
+        # Under a mesh (cohort_null.py:667-713, :1115-1155) flat rank r
+        # takes subjects r·jl … (r+1)·jl − 1 of the cohort padded to
+        # n_ranks·jl by repeating the last subject; the passes are
+        # gathered and the pad rows dropped before the epilogue
+        if mesh is None:
+            subjects = range(J)
+        else:
+            jl = -(-J // mesh.size())
+            r = flat_index(mesh)
+            subjects = [min(j, J - 1) for j in range(r * jl, (r + 1) * jl)]
         upload_bytes = 0
         bases, coefs = [], []
-        if mesh is not None or (overlap_upload and not per_window):
-            # one subject at a time: subject j's pass is queued, then
-            # subject j + 1 goes up on the copy stream under it (its
-            # null.upload span nested in pass j's null.coeffs), then the
-            # host waits for pass j.  Under a mesh (cohort_null.py:667-713,
-            # :1115-1155) flat rank r takes subjects r·jl … (r+1)·jl − 1
-            # of the cohort padded to n_ranks·jl by repeating the last
-            # subject; the passes are gathered and the pad rows dropped
-            # before the epilogue
-            if mesh is None:
-                subjects = range(J)
-            else:
-                jl = -(-J // mesh.size())
-                r = flat_index(mesh)
-                subjects = [min(j, J - 1)
-                            for j in range(r * jl, (r + 1) * jl)]
-            up = subject_upload(subjects[0])
-            for i, j in enumerate(subjects):
-                eeg_j, emg_j = up.take()
-                upload_bytes += _nbytes(eeg_j) + _nbytes(emg_j)
-                with span("null.coeffs"):
-                    b, c = subject_coeffs(eeg_j, emg_j, j)
-                    bases.append(b)
-                    coefs.append(c)
-                    del eeg_j, emg_j
-                    if i + 1 < len(subjects):
-                        up = subject_upload(subjects[i + 1])
-                    wait_stream(device)
-            synchronize(device)
-            if mesh is not None:
-                with span("null.gather"):
-                    bases = list(torch.cat(_dist.gather(torch.stack(bases),
-                                                        mesh))[:J])
-                    coefs = list(torch.cat(_dist.gather(torch.stack(coefs),
-                                                        mesh))[:J])
-                    synchronize(device)
-        else:
-            # fused (cohort_null.py:1059-1080): the whole cohort first
-            with span("null.upload"):
-                eeg_d, emg_d = link(eeg_cohort, emg_cohort).take()
-                synchronize(device)
-            upload_bytes = _nbytes(eeg_d) + _nbytes(emg_d)
+        up = subject_upload(subjects[0])
+        for i, j in enumerate(subjects):
+            eeg_j, emg_j = up.take()
+            upload_bytes += _nbytes(eeg_j) + _nbytes(emg_j)
             with span("null.coeffs"):
-                for j in range(J):
-                    b, c = subject_coeffs(eeg_d[j], emg_d[j], j)
-                    bases.append(b)
-                    coefs.append(c)
-                del eeg_d, emg_d
+                b, c = subject_coeffs(eeg_j, emg_j, j)
+                bases.append(b)
+                coefs.append(c)
+                del eeg_j, emg_j
+                if i + 1 < len(subjects):
+                    up = subject_upload(subjects[i + 1])
+                wait_stream(device)
+        synchronize(device)
+        if mesh is not None:
+            with span("null.gather"):
+                bases = list(torch.cat(_dist.gather(torch.stack(bases),
+                                                    mesh))[:J])
+                coefs = list(torch.cat(_dist.gather(torch.stack(coefs),
+                                                    mesh))[:J])
                 synchronize(device)
         with span("null.epilogue"):
             epilogue = cohort_epilogue_pw if per_window else cohort_epilogue
@@ -696,8 +676,10 @@ def _msc_map_subject(eeg, emg, starts, weights, tapers, window_samples: int,
     for c0 in range(0, starts.shape[0], window_chunk):
         cs = starts[c0:c0 + window_chunk]
         wts = weights[c0:c0 + window_chunk]
-        Es = band_spectra(eeg, cs, tapers, window_samples, band_lo, band_hi)
-        Ms = band_spectra(emg, cs, tapers, window_samples, band_lo, band_hi)
+        Es = band_spectra(eeg, cs, tapers, window_samples, band_lo,
+                          band_hi).contiguous()
+        Ms = band_spectra(emg, cs, tapers, window_samples, band_lo,
+                          band_hi).contiguous()
         Er, Ei = Es.real[..., :, None], Es.imag[..., :, None]
         Mr, Mi = Ms.real[..., None, :], Ms.imag[..., None, :]
         csd_r = (Er * Mr + Ei * Mi).sum(dim=1)          # (wc, F, E, M)
@@ -953,7 +935,7 @@ def cohort_msc_null(eeg_cohort, emg_cohort, sampling_freq: float,
         fft_kw = dict(kw)
         dropped = [k for k in ("rotation_mode", "p_value_windows",
                                "compute_dtype", "transfer_dtype",
-                               "overlap_upload", "precompute_only",
+                               "precompute_only",
                                "coeff_engine", "per_window_max_coef_bytes")
                    if fft_kw.pop(k, None) is not None]
         fft_kw.setdefault("surrogate_chunk", 8)

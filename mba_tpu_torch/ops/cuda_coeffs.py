@@ -36,9 +36,15 @@ import numpy as np
 import torch
 
 from mba_tpu_torch import _build
-from mba_tpu_torch.ops.gram_coeffs import _pair_indices
 
 _F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+def _pair_indices(K: int) -> tuple[np.ndarray, np.ndarray]:
+    """Upper-triangle (k < l) index pairs: the order of the kernel's pair
+    sums, the rotation features and every engine's coefficients."""
+    ks, ls = np.triu_indices(K, k=1)
+    return ks.astype(np.int64), ls.astype(np.int64)
 
 
 def taper_products(eeg_spec: torch.Tensor, emg_spec: torch.Tensor,

@@ -1,9 +1,11 @@
-"""Sliding-window framing and resampling (port of
-``mba_tpu/ops/framing.py``).
+"""Sliding-window framing, the window spectra's front end and
+resampling (port of ``mba_tpu/ops/framing.py``).
 
 ``window_grid`` is the JAX package's numpy host function, copied;
-``frame_signal`` is one index gather on a torch tensor;
-``resample_linear`` interpolates on the tensor's device.
+``frame_signal`` is one index gather on a torch tensor; every pass that
+takes tapered window spectra starts from :func:`pad_windows`,
+:func:`tapered_rfft` or :func:`band_spectra`; ``resample_linear``
+interpolates on the tensor's device.
 """
 from __future__ import annotations
 
@@ -47,6 +49,43 @@ def frame_signal(x: torch.Tensor, window_starts, window_samples: int
                              device=x.device)
     idx = starts[:, None] + torch.arange(window_samples, device=x.device)
     return x[idx]
+
+
+def pad_windows(starts: torch.Tensor, weights: torch.Tensor, chunk: int):
+    """Pad (W,) starts/weights to a multiple of ``chunk``: pad windows
+    repeat ``starts[0]`` with weight 0 (``cohort_null.py:165-170``)."""
+    pad = (-starts.shape[0]) % chunk
+    if pad:
+        starts = torch.cat([starts, starts[:1].repeat(pad)])
+        weights = torch.cat([weights, weights.new_zeros(pad)])
+    return starts, weights
+
+
+def _taper_spectra(frames: torch.Tensor, tapers: torch.Tensor
+                   ) -> torch.Tensor:
+    """(w, S, C) frames × (K, S) tapers → (w, K, S//2 + 1, C) complex64,
+    in the layout the FFT leaves (not contiguous in general)."""
+    return torch.fft.rfft(frames[:, None, :, :] * tapers[None, :, :, None],
+                          dim=2)
+
+
+def tapered_rfft(frames: torch.Tensor, tapers: torch.Tensor
+                 ) -> torch.Tensor:
+    """(w, S, C) frames × (K, S) tapers → (w, K, F, C) complex64 spectra,
+    contiguous."""
+    return _taper_spectra(frames, tapers).contiguous()
+
+
+def band_spectra(sig: torch.Tensor, starts: torch.Tensor,
+                 tapers: torch.Tensor, window_samples: int, band_lo: int,
+                 band_hi: int) -> torch.Tensor:
+    """(n, C) signal of any real dtype (cast to float32 after the gather)
+    + (wc,) starts → (wc, K, F, C) complex64 tapered band spectra, a view
+    of the FFT's output: a reduction over the tapers rounds by the layout
+    it reads, so each caller keeps its own (``.contiguous()`` copies the
+    band alone)."""
+    fr = frame_signal(sig, starts, window_samples).to(torch.float32)
+    return _taper_spectra(fr, tapers)[:, :, band_lo:band_hi]
 
 
 def _linspace_from_zero(stop: float, num: int, device) -> torch.Tensor:

@@ -16,7 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mba_tpu_torch.ops.framing import frame_signal
+from mba_tpu_torch.ops.cuda_coeffs import _pair_indices
+from mba_tpu_torch.ops.framing import band_spectra, frame_signal, pad_windows
 from mba_tpu_torch.utils.profiling import count
 
 _F32_TINY = float(np.finfo(np.float32).tiny)
@@ -25,12 +26,6 @@ _F32_TINY = float(np.finfo(np.float32).tiny)
 # the degenerate (zero-signal) region
 _EPS_HALF = float(np.sqrt(np.finfo(np.float32).tiny))
 GRAM_CHUNK = 512
-
-
-def _pair_indices(K: int) -> tuple[np.ndarray, np.ndarray]:
-    """Upper-triangle (k < l) index pairs for the rotation features."""
-    ks, ls = np.triu_indices(K, k=1)
-    return ks.astype(np.int64), ls.astype(np.int64)
 
 
 def band_dft_tapered(tapers: torch.Tensor, window_samples: int,
@@ -69,9 +64,10 @@ def gram_coeffs_subject(eeg: torch.Tensor, emg: torch.Tensor,
     with P = K(K−1) (cos pairs then sin pairs), such that
     ``stat(φ) = base + feats(φ)·coef`` is the weighted window-mean MSC
     under taper-rotated EMG spectra.  ``spectra='fft'`` takes the band
-    bins of ``torch.fft.rfft`` instead of the DFT matmul.  (The JAX
-    version's ``dft_precision``/``gram_precision`` are TPU matmul-pass
-    knobs; here every matmul is full float32.)
+    spectra of the window front end (``framing.band_spectra``, the rFFT)
+    instead of the DFT matmul.  (The JAX version's ``dft_precision``/
+    ``gram_precision`` are TPU matmul-pass knobs; here every matmul is
+    full float32.)
     """
     if spectra not in ("dft", "fft"):
         raise ValueError(f"spectra must be 'dft' or 'fft', got {spectra!r}")
@@ -84,23 +80,19 @@ def gram_coeffs_subject(eeg: torch.Tensor, emg: torch.Tensor,
     nM = emg.shape[1]
     P2 = len(ks)
 
-    W = starts.shape[0]
-    gc = int(min(gram_chunk, W))
-    pad = (-W) % gc
-    if pad:
-        starts = torch.cat([starts, starts[:1].repeat(pad)])
-        weights = torch.cat([weights, weights.new_zeros(pad)])
+    gc = int(min(gram_chunk, starts.shape[0]))
+    starts, weights = pad_windows(starts, weights, gc)
     count("coeffs.windows_framed", starts.shape[0])
     if spectra == "dft":
         D = band_dft_tapered(tapers, window_samples, band_lo, band_hi)
 
-    def band_spectra(sig, cs):
+    def re_im(sig, cs):
         """(n, C) signal + (gc,) starts → Re/Im (gc, K, F, C) float32."""
-        fr = frame_signal(sig, cs, window_samples).to(torch.float32)
         if spectra == "fft":
-            Xf = torch.fft.rfft(fr[:, None] * tapers[None, :, :, None],
-                                dim=2)[:, :, band_lo:band_hi]
-            return Xf.real, Xf.imag                      # (gc, K, F, C)
+            X = band_spectra(sig, cs, tapers, window_samples, band_lo,
+                             band_hi)
+            return X.real, X.imag
+        fr = frame_signal(sig, cs, window_samples).to(torch.float32)
         C = sig.shape[1]
         Xq = torch.einsum("wsc,sq->wcq", fr, D)
         Xq = Xq.reshape(-1, C, 2, K, nF).movedim(1, -1)  # (gc,2,K,F,C)
@@ -122,8 +114,8 @@ def gram_coeffs_subject(eeg: torch.Tensor, emg: torch.Tensor,
     for c0 in range(0, starts.shape[0], gc):
         cs = starts[c0:c0 + gc]
         wts = weights[c0:c0 + gc]
-        Er, Ei = band_spectra(eeg, cs)
-        Mr, Mi = band_spectra(emg, cs)
+        Er, Ei = re_im(eeg, cs)
+        Mr, Mi = re_im(emg, cs)
         sqrtw = torch.sqrt(wts.to(torch.float32))
         a_diag, ipe = side_operands(Er, Ei, sqrtw)
         b_diag, ipm = side_operands(Mr, Mi, sqrtw)

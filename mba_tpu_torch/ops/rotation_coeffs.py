@@ -3,10 +3,11 @@
 Port of the non-gram branches of ``mba_tpu/ops/cohort_null.py:
 _rotation_coeffs_body`` (:128-307).  Per subject, the windows are padded
 to a multiple of the chunk (pad windows repeat the first start with
-weight 0, :165-170); per chunk both signals are framed, cast to float32
-after framing (so int16/int8 ADC counts pass through), tapered,
-transformed with ``torch.fft.rfft`` and cut to the band.  The chunk's
-taper spectra then go to the pair pass:
+weight 0, :165-170); per chunk both signals go through the window front
+end, ``framing.band_spectra`` (framed, cast to float32 after framing so
+int16/int8 ADC counts pass through, tapered, transformed with
+``torch.fft.rfft`` and cut to the band), and the band is copied out
+contiguous.  The chunk's taper spectra then go to the pair pass:
 
 - ``engine='pallas'``: the wrapper of kernel B3 (``cuda_coeffs.
   coeff_pairs``), which launches ``csrc/coeff_pairs.cu`` on a CUDA tensor
@@ -27,33 +28,13 @@ from __future__ import annotations
 
 import torch
 
-from mba_tpu_torch.ops.cuda_coeffs import (_F32_TINY, coeff_pairs,
-                                           coeff_pairs_plain, taper_products)
-from mba_tpu_torch.ops.framing import frame_signal
-from mba_tpu_torch.ops.gram_coeffs import _pair_indices
+from mba_tpu_torch.ops.cuda_coeffs import (_F32_TINY, _pair_indices,
+                                           coeff_pairs, coeff_pairs_plain,
+                                           taper_products)
+from mba_tpu_torch.ops.framing import band_spectra, pad_windows
 from mba_tpu_torch.utils.profiling import count
 
 ENGINES = ("pallas", "xla")
-
-
-def pad_windows(starts: torch.Tensor, weights: torch.Tensor, chunk: int):
-    """Pad (W,) starts/weights to a multiple of ``chunk``: pad windows
-    repeat ``starts[0]`` with weight 0 (``cohort_null.py:165-170``)."""
-    pad = (-starts.shape[0]) % chunk
-    if pad:
-        starts = torch.cat([starts, starts[:1].repeat(pad)])
-        weights = torch.cat([weights, weights.new_zeros(pad)])
-    return starts, weights
-
-
-def band_spectra(sig: torch.Tensor, starts: torch.Tensor,
-                 tapers: torch.Tensor, window_samples: int, band_lo: int,
-                 band_hi: int) -> torch.Tensor:
-    """(n, C) signal of any real dtype + (wc,) starts → (wc, K, F, C)
-    complex64 tapered band spectra, contiguous."""
-    fr = frame_signal(sig, starts, window_samples).to(torch.float32)
-    X = torch.fft.rfft(fr[:, None] * tapers[None, :, :, None], dim=2)
-    return X[:, :, band_lo:band_hi].contiguous()
 
 
 def per_window_pairs(eeg_spec: torch.Tensor, emg_spec: torch.Tensor,
@@ -97,8 +78,10 @@ def rotation_coeffs_subject(eeg: torch.Tensor, emg: torch.Tensor,
     for c0 in range(0, starts.shape[0], window_chunk):
         cs = starts[c0:c0 + window_chunk]
         wts = weights[c0:c0 + window_chunk].contiguous()
-        Es = band_spectra(eeg, cs, tapers, window_samples, band_lo, band_hi)
-        Ms = band_spectra(emg, cs, tapers, window_samples, band_lo, band_hi)
+        Es = band_spectra(eeg, cs, tapers, window_samples, band_lo,
+                          band_hi).contiguous()
+        Ms = band_spectra(emg, cs, tapers, window_samples, band_lo,
+                          band_hi).contiguous()
         if per_window:
             parts.append(per_window_pairs(Es, Ms, wts))
             continue

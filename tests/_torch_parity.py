@@ -198,10 +198,12 @@ NULL_UPLOAD_KEYS = ("observed", "max_stat", "p_uncorrected", "p_fwe")
 def null_across_upload_paths(device, coeff_engine, seconds=100.0):
     """The cohort rotation null of three subjects (64×64 at 2048 Hz,
     ``seconds`` each: 52 MB an array at 100 s, six chunks of the staging
-    ring and a part) on ``device``, run by upload path: the plain copy
-    (every array under the staging threshold), then staged with
-    ``overlap_upload`` True and False.  {path: the results of
-    ``NULL_UPLOAD_KEYS``}, as numpy."""
+    ring and a part) on ``device``, run by upload path, the plain copy
+    (every array under the staging threshold) and staged, in each
+    rotation mode (the per-window mode over 13-20 Hz, whose coefficients
+    then fit its 2-GiB budget).  {"plain_shared", "staged_shared",
+    "plain_per_window", "staged_per_window": the results of
+    ``NULL_UPLOAD_KEYS`` as numpy, and the counters}."""
     from mba_tpu_torch import _device
     from mba_tpu_torch.ops import cohort_null as TN
     rng = np.random.default_rng(11)
@@ -209,18 +211,21 @@ def null_across_upload_paths(device, coeff_engine, seconds=100.0):
     drive = rng.standard_normal((3, n, 1)).astype(np.float32)
     eeg = rng.standard_normal((3, n, 64), dtype=np.float32) + 0.3 * drive
     emg = rng.standard_normal((3, n, 64), dtype=np.float32) + 0.3 * drive
-    kw = dict(n_surrogates=300, surrogate_chunk=100, band=(13.0, 100.0),
+    kw = dict(n_surrogates=300, surrogate_chunk=100,
               coeff_engine=coeff_engine, seed=5, device=device)
+    modes = {"shared": dict(band=(13.0, 100.0)),
+             "per_window": dict(band=(13.0, 20.0))}
     out, threshold = {}, _device.STAGE_MIN_BYTES
     try:
-        for path, overlap, stage_min in (("plain", True, eeg[0].nbytes + 1),
-                                         ("staged", True, threshold),
-                                         ("staged_fused", False, threshold)):
-            _device.STAGE_MIN_BYTES = stage_min
-            res = TN.cohort_msc_rotation_null(eeg, emg, 2048.0,
-                                              overlap_upload=overlap, **kw)
-            out[path] = {k: np.asarray(res[k]) for k in NULL_UPLOAD_KEYS}
-            out[path]["counters"] = res["metadata"]["timings"]["counters"]
+        for mode, mode_kw in modes.items():
+            for path, stage_min in (("plain", eeg[0].nbytes + 1),
+                                    ("staged", threshold)):
+                _device.STAGE_MIN_BYTES = stage_min
+                res = TN.cohort_msc_rotation_null(
+                    eeg, emg, 2048.0, rotation_mode=mode, **mode_kw, **kw)
+                run = {k: np.asarray(res[k]) for k in NULL_UPLOAD_KEYS}
+                run["counters"] = res["metadata"]["timings"]["counters"]
+                out[f"{path}_{mode}"] = run
     finally:
         _device.STAGE_MIN_BYTES = threshold
     return out

@@ -1,6 +1,6 @@
 """Parity of the port's other cohort-null engines with ``mba_tpu``: the
-chunked coefficient engines (``coeff_engine='pallas'|'xla'``), the fused
-upload (``overlap_upload=False``), the per-window rotation null, the
+chunked coefficient engines (``coeff_engine='pallas'|'xla'``) against
+both of the JAX package's upload modes, the per-window rotation null, the
 full-FFT null and the ``cohort_msc_null`` dispatch.
 
 Observed maps are compared at the tolerance of the engine that made
@@ -52,16 +52,17 @@ def _assert_observed(got, ref, engine):
     ("xla", True), ("pallas", True), ("pallas", False), ("gram", False)])
 def test_rotation_null_engines_match_jax(engine, overlap):
     """The observed map against the JAX call with the same engine (JAX
-    runs ``'pallas'`` as its XLA scan on the CPU), the surrogate loop end
-    to end, and the timing split of the chosen upload mode."""
+    runs ``'pallas'`` as its XLA scan on the CPU, uploading per subject or
+    the whole cohort first; the port has the per-subject upload only),
+    the surrogate loop end to end, and the timing split."""
     eeg, emg = _cohort(J=2, n_sec=16.0)
     ref = JN.cohort_msc_rotation_null(
         eeg, emg, precompute_only=True, coeff_engine=engine,
         overlap_upload=overlap, window_chunk=4, **KW)
     before = cuda_coeffs.coeff_pairs.launches
     got = TN.cohort_msc_rotation_null(
-        eeg, emg, n_surrogates=300, coeff_engine=engine,
-        overlap_upload=overlap, window_chunk=4, **KW, device="cpu")
+        eeg, emg, n_surrogates=300, coeff_engine=engine, window_chunk=4,
+        **KW, device="cpu")
     assert cuda_coeffs.coeff_pairs.launches == before
     _assert_observed(got["observed"], ref["observed"], engine)
     assert got["max_stat"].shape == (300,)

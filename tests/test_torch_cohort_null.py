@@ -215,24 +215,26 @@ JAX_DTYPES = {torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16}
 @pytest.mark.parametrize("transfer_dtype", [np.int16, np.int8, np.float16])
 def test_rotation_null_transfer_dtype_matches_jax(transfer_dtype,
                                                   overlap_upload):
-    """``transfer_dtype`` on a float cohort, per-subject and whole-cohort
-    uploads: the host conversion is the JAX package's
+    """``transfer_dtype`` on a float cohort, held against the JAX
+    package's per-subject and whole-cohort uploads (the port has the
+    per-subject one only): the host conversion is the JAX package's
     (``native.quantize_*_per_channel``, bit for bit in
     ``tests/test_torch_transfer.py``), so the port equals itself run on
     the converted cohort widened to float32, and the JAX package within
     the gram engine's tolerance (the observed maps and, at one seed, the
     maxima), with ``p_fwe`` and the upload bytes equal."""
     eeg, emg = _cohort(J=2, n_sec=12.0)
-    kw = dict(KW, n_surrogates=200, overlap_upload=overlap_upload)
+    kw = dict(KW, n_surrogates=200)
     ref = JN.cohort_msc_rotation_null(eeg, emg, transfer_dtype=transfer_dtype,
-                                      compute_dtype=jnp.float32, **kw)
+                                      compute_dtype=jnp.float32,
+                                      overlap_upload=overlap_upload, **kw)
     got = TN.cohort_msc_rotation_null(eeg, emg, transfer_dtype=transfer_dtype,
                                       device="cpu", **kw)
     conv = TN.upload_quantizer(transfer_dtype, eeg, emg)
+    # int16/int8 convert to numpy, float16 to a CPU tensor
     wide = TN.cohort_msc_rotation_null(
-        np.stack([conv(x).float().numpy() for x in eeg]),
-        np.stack([conv(x).float().numpy() for x in emg]), device="cpu",
-        **kw)
+        *(np.stack([torch.as_tensor(conv(x)).float().numpy() for x in xs])
+          for xs in (eeg, emg)), device="cpu", **kw)
     np.testing.assert_array_equal(got["observed"], wide["observed"])
     np.testing.assert_array_equal(got["max_stat"], wide["max_stat"])
     sc = float(np.abs(ref["observed"]).max())
@@ -436,16 +438,16 @@ def test_null_chunk_pw_16bit_padded_cells_match_jax(compute_dtype):
 def test_null_results_do_not_depend_on_the_upload_path(coeff_engine):
     """On the card, the null's results are bit for bit the same whether
     its cohort goes up by the plain copy or through the staging ring,
-    one subject at a time under the previous subject's pass
-    (``overlap_upload=True``) or the whole cohort first."""
+    each subject under the previous subject's pass, in the shared and
+    the per-window rotation mode."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: nothing is staged on the CPU")
     runs = null_across_upload_paths("cuda", coeff_engine)
-    assert "upload.staged_bytes" not in runs["plain"]["counters"]
-    for path in ("staged", "staged_fused"):
-        c = runs[path]["counters"]
+    for mode in ("shared", "per_window"):
+        plain, staged = runs[f"plain_{mode}"], runs[f"staged_{mode}"]
+        assert "upload.staged_bytes" not in plain["counters"]
+        c = staged["counters"]
         assert c["upload.staged_bytes"] == c["upload.bytes"] > 0
         for key in NULL_UPLOAD_KEYS:
-            np.testing.assert_array_equal(runs[path][key],
-                                          runs["plain"][key],
-                                          err_msg=f"{path} {key}")
+            np.testing.assert_array_equal(staged[key], plain[key],
+                                          err_msg=f"{mode} {key}")

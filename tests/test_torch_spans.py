@@ -169,25 +169,28 @@ def test_cmc_with_no_active_window_records_no_pass():
     assert t["download_bytes"] == 0
 
 
-@pytest.mark.parametrize("overlap_upload", [True, False])
+@pytest.mark.parametrize("transfer_dtype", [None, np.int16])
 @pytest.mark.parametrize("rotation_mode", ["shared", "per_window"])
-def test_null_span_tree(overlap_upload, rotation_mode):
-    res = _null(overlap_upload=overlap_upload, rotation_mode=rotation_mode)
+def test_null_span_tree(rotation_mode, transfer_dtype):
+    res = _null(rotation_mode=rotation_mode, transfer_dtype=transfer_dtype)
     t = res["metadata"]["timings"]
     recs = t["spans"]
     _assert_tree(recs, "null")
-    # the per-window mode uploads the whole cohort first, as before
-    per_subject = overlap_upload and rotation_mode == "shared"
-    n = NULL_J if per_subject else 1
+    n = NULL_J
     assert _names(recs, 0) == (["null.plan", "null.upload"]
                                + ["null.coeffs"] * n
                                + ["null.epilogue", "null.surrogates"])
-    # one upload and one pass a subject; subject j + 1's upload nested in
-    # subject j's pass, which it runs under
+    # one upload and one pass a subject in either mode; subject j + 1's
+    # upload nested in subject j's pass, which it runs under
     assert _names(recs).count("null.upload") == n
     passes = [i for i, r in enumerate(recs) if r[0] == "null.coeffs"]
     assert [_names(recs, i) for i in passes] == \
         [["null.upload"]] * (n - 1) + [[]]
+    # the host's conversion of each of the subject's two arrays inside
+    # its upload
+    uploads = [i for i, r in enumerate(recs) if r[0] == "null.upload"]
+    quantized = ["null.quantize"] * 2 if transfer_dtype else []
+    assert [_names(recs, i) for i in uploads] == [quantized] * n
     surr = _names(recs).index("null.surrogates")
     assert _names(recs, surr) == ["null.chunk"] * NULL_CHUNKS
     assert res["metadata"]["n_surrogates_drawn"] == NULL_CHUNKS * 16
@@ -239,36 +242,42 @@ def test_window_counters(engine, framed, p_value_windows, weighted):
     assert c["coeffs.windows_weighted"] == NULL_J * weighted
 
 
-@pytest.mark.parametrize("overlap_upload", [True, False])
+@pytest.mark.parametrize("rotation_mode", ["shared", "per_window"])
 @pytest.mark.parametrize("transfer_dtype", [None, np.int16])
-def test_upload_bytes_counter(overlap_upload, transfer_dtype):
+def test_upload_bytes_counter(rotation_mode, transfer_dtype):
     eeg, emg = _cohort()
-    t = _null(overlap_upload=overlap_upload,
+    t = _null(rotation_mode=rotation_mode,
               transfer_dtype=transfer_dtype)["metadata"]["timings"]
     size = 4 if transfer_dtype is None else 2
     assert t["upload_bytes"] == (eeg.size + emg.size) * size
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("overlap_upload", [True, False])
-def test_upload_counters_on_the_card(overlap_upload):
-    """Each subject's arrays at 2048 Hz × 64 channels × 40 s (21 MB,
-    over the staging threshold) all go through the staging ring: the
-    staged bytes are the uploaded bytes and the ``upload_bytes`` key."""
+@pytest.mark.parametrize("transfer_dtype", [None, np.int16])
+@pytest.mark.parametrize("rotation_mode", ["shared", "per_window"])
+def test_upload_counters_on_the_card(rotation_mode, transfer_dtype):
+    """Each subject's arrays at 2048 Hz × 64 channels × 80 s (42 MB in
+    float32, 21 MB quantized to int16: over the staging threshold either
+    way) all go through the staging ring: the staged bytes are the
+    uploaded bytes and the ``upload_bytes`` key.  Twenty windows a
+    subject keep the per-window coefficients small."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: nothing is staged on the CPU")
     rng = np.random.default_rng(4)
-    eeg, emg = (rng.standard_normal((NULL_J, 40 * 2048, 64),
-                                    dtype=np.float32) for _ in range(2))
-    assert eeg[0].nbytes >= TD.STAGE_MIN_BYTES
+    n = 80 * 2048
+    eeg, emg = (rng.standard_normal((NULL_J, n, 64), dtype=np.float32)
+                for _ in range(2))
+    size = np.dtype(transfer_dtype or np.float32).itemsize
+    assert eeg[0].size * size >= TD.STAGE_MIN_BYTES
+    starts = np.tile(np.arange(20)[None] * 8192, (NULL_J, 1))
     t = TN.cohort_msc_rotation_null(
-        eeg, emg, 2048.0, overlap_upload=overlap_upload,
+        eeg, emg, 2048.0, rotation_mode=rotation_mode,
+        transfer_dtype=transfer_dtype, window_starts=starts,
         **{**NULL_KW, "device": "cuda"})["metadata"]["timings"]
     c = t["counters"]
     assert c["upload.staged_bytes"] == c["upload.bytes"] == \
-        t["upload_bytes"] == eeg.nbytes + emg.nbytes
-    assert _names(t["spans"]).count("null.upload") == \
-        (NULL_J if overlap_upload else 1)
+        t["upload_bytes"] == (eeg.size + emg.size) * size
+    assert _names(t["spans"]).count("null.upload") == NULL_J
 
 
 # ---- the legacy timings as sums of spans -------------------------------
@@ -279,7 +288,7 @@ def _span_sum(records, *names, parent=None):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(), dict(overlap_upload=False), dict(transfer_dtype=np.int16),
+    dict(), dict(rotation_mode="per_window"), dict(transfer_dtype=np.int16),
     dict(precompute_only=True)])
 def test_null_timings_are_sums_of_spans(kw):
     t = _null(**kw)["metadata"]["timings"]
@@ -408,15 +417,13 @@ def test_cmc_synchronises_and_ranges(monkeypatch, profiler,
 
 
 @pytest.mark.parametrize("profiler", [False, True])
-@pytest.mark.parametrize("overlap_upload,syncs", [
-    (True, 1),                    # after the last pass (the copy's events
-                                  # and the stream close each subject)
-    (False, 2)])                  # after the cohort's upload and passes
-def test_null_synchronises_and_ranges(monkeypatch, profiler,
-                                      overlap_upload, syncs):
+@pytest.mark.parametrize("rotation_mode", ["shared", "per_window"])
+def test_null_synchronises_and_ranges(monkeypatch, profiler, rotation_mode):
+    """One synchronise, after the last pass, in either mode (the copy's
+    events and the stream close each subject)."""
     counts = _Counts(monkeypatch)
     with _profiled(profiler):
-        res = _null(overlap_upload=overlap_upload)
-    assert counts.sync == syncs and counts.cuda_sync == 0
+        res = _null(rotation_mode=rotation_mode)
+    assert counts.sync == 1 and counts.cuda_sync == 0
     n_spans = len(res["metadata"]["timings"]["spans"])
     assert counts.ranges == (n_spans if profiler else 0)
