@@ -100,7 +100,25 @@ class Upload:
         return tensors
 
 
-def upload(arrays, device: torch.device) -> Upload:
+def _ring_columns(x, cols):
+    """The columns of host array ``x`` that ``cols`` selects, as the
+    staging ring gathers them (a 1-D index array, negative indices
+    wrapped and out-of-range ones raising as in ``np.take``), or None
+    where the ring cannot: ``x`` not a C-contiguous 2-D array of a staged
+    type, a selection of another shape, wider than a chunk, or under
+    ``STAGE_MIN_BYTES``."""
+    if not (isinstance(x, np.ndarray) and x.ndim == 2
+            and x.flags.c_contiguous and x.dtype in _staging.TORCH_DTYPES):
+        return None
+    cols = np.take(np.arange(x.shape[1]), cols)
+    width = cols.size * x.itemsize
+    if cols.ndim != 1 or not 0 < width <= _staging.CHUNK_BYTES \
+            or len(x) * width < STAGE_MIN_BYTES:
+        return None
+    return cols
+
+
+def upload(arrays, device: torch.device, columns=None) -> Upload:
     """Signal arrays → an :class:`Upload` of tensors on ``device``,
     without waiting on the host for the card.  float32 and integer ADC
     counts (int16/int8) travel as they are, to be cast to float32 on the
@@ -108,38 +126,63 @@ def upload(arrays, device: torch.device) -> Upload:
     host dtype is cast to float32 first.  Host arrays of at least
     ``STAGE_MIN_BYTES`` then go up through the staging ring on its copy
     stream where ``device`` is a CUDA device; smaller ones, tensors and
-    the CPU take the plain copy.  Counts the bytes of the host arrays
-    taken to a CUDA device (``upload.bytes``) and of those staged
-    (``upload.staged_bytes``)."""
+    the CPU take the plain copy.  ``columns``, one entry an array
+    (default: None for each), selects a 2-D (rows, channels) array's
+    columns, as ``np.take(x, cols, axis=1)`` (``x[:, cols]`` for a
+    tensor): the ring gathers them from the caller's array as they go up
+    where it can take the selection (``_ring_columns``); elsewhere the
+    selection is made here first, then uploaded.  Counts the bytes of
+    the host arrays taken to a CUDA device (``upload.bytes``) and of
+    those staged (``upload.staged_bytes``), on any device the bytes of
+    every selection (``upload.subset_bytes``) and on a CUDA device those
+    of the host arrays' selections the ring gathered
+    (``upload.gathered_bytes``)."""
     cuda = device.type == "cuda"
     out, staged = [], []
-    for x in arrays:
+    for x, cols in zip(arrays, columns or [None] * len(arrays)):
+        picked = None
+        if cols is not None:
+            picked = _ring_columns(x, cols) if cuda else None
+            if picked is None:
+                x = (x[:, cols] if isinstance(x, torch.Tensor)
+                     else np.take(x, cols, axis=1))
         if not isinstance(x, torch.Tensor):
             x = np.asarray(x)
             if x.dtype not in (np.int16, np.int8, np.float32):
                 x = x.astype(np.float32)
             x = np.ascontiguousarray(x)
+            nbytes = x.nbytes if picked is None \
+                else len(x) * picked.size * x.itemsize
+            if cols is not None:
+                count("upload.subset_bytes", nbytes)
             if cuda:
-                count("upload.bytes", x.nbytes)
-                if x.nbytes >= STAGE_MIN_BYTES:
-                    count("upload.staged_bytes", x.nbytes)
-                    staged.append((len(out), x))
+                count("upload.bytes", nbytes)
+                if cols is not None:
+                    count("upload.gathered_bytes",
+                          0 if picked is None else nbytes)
+                if nbytes >= STAGE_MIN_BYTES:
+                    count("upload.staged_bytes", nbytes)
+                    staged.append((len(out), x, picked))
                     out.append(None)
                     continue
             x = torch.from_numpy(x)
+        elif cols is not None:
+            count("upload.subset_bytes", x.numel() * x.element_size())
         out.append(x.to(device))
     if not staged:
         return Upload(out)
-    tensors, ready = _staging.stage([x for _, x in staged], device)
-    for (i, _), t in zip(staged, tensors):
+    tensors, ready = _staging.stage([x for _, x, _ in staged], device,
+                                    [c for _, _, c in staged])
+    for (i, _, _), t in zip(staged, tensors):
         out[i] = t
     return Upload(out, ready)
 
 
-def to_device(x, device: torch.device) -> torch.Tensor:
-    """Signal array → tensor on ``device`` (:func:`upload`), in stream
-    order for the current stream."""
-    return upload([x], device).take()[0]
+def to_device(x, device: torch.device, columns=None) -> torch.Tensor:
+    """Signal array → tensor on ``device`` (:func:`upload`, ``columns``
+    its selection of ``x``'s columns), in stream order for the current
+    stream."""
+    return upload([x], device, [columns]).take()[0]
 
 
 def wait_stream(device: torch.device) -> None:

@@ -5,7 +5,11 @@ CUDA copies it on one thread into pinned buffers of its own and waits
 for each transfer.  :func:`stage` copies it chunk by chunk into a small
 ring of reusable page-locked buffers instead, the chunks dealt to a
 thread on each of the host's usable cores, and sends each chunk up with
-``cudaMemcpyAsync`` on a copy stream of its own.
+``cudaMemcpyAsync`` on a copy stream of its own.  Given a column
+selection, a (rows, channels) array goes up as the selected columns
+only: each chunk is a block of whole rows, whose selected columns its
+thread gathers straight from the caller's array into the buffer, so no
+copy of the selection is made anywhere else.
 Each thread owns a few buffers of the ring and copies its next chunk
 into one while the others cross; an event on each buffer says when the
 transfer that last read it has completed, so the buffer can be
@@ -22,6 +26,7 @@ its stream wait on the ready event and calls ``record_stream`` for it
 from __future__ import annotations
 
 import functools
+import math
 import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -41,8 +46,8 @@ BUFFERS_PER_THREAD = 3
 
 
 class Step(NamedTuple):
-    """One chunk of a staged array: bytes [start, stop) go through ring
-    buffer ``slot``."""
+    """One chunk of a staged array: bytes [start, stop) (rows, of a
+    gathered array) go through ring buffer ``slot``."""
     slot: int
     start: int
     stop: int
@@ -58,6 +63,14 @@ def chunk_plan(nbytes: int, chunk_bytes: int, depth: int,
     return [Step((cursor + i) % depth, start,
                  min(start + chunk_bytes, nbytes))
             for i, start in enumerate(range(0, nbytes, chunk_bytes))]
+
+
+def row_plan(n_rows: int, row_bytes: int, chunk_bytes: int, depth: int,
+             cursor: int) -> list[Step]:
+    """:func:`chunk_plan` of a gathered array, in rows: ``n_rows`` rows of
+    ``row_bytes`` selected bytes, as many whole rows a chunk as fill at
+    most ``chunk_bytes`` (``row_bytes`` ≤ ``chunk_bytes``)."""
+    return chunk_plan(n_rows, chunk_bytes // row_bytes, depth, cursor)
 
 
 @functools.cache
@@ -101,15 +114,23 @@ class _Ring:
     def run(self, lane) -> None:
         """One thread's chunks, in order: wait until the transfer that
         last read the chunk's buffer has completed, copy the chunk into
-        the buffer, send it up on the copy stream, mark the buffer."""
+        the buffer (bytes; or the selected columns ``cols`` of a block of
+        rows, gathered by ``index_select``, which runs without the GIL),
+        send it up on the copy stream, mark the buffer."""
         with torch.cuda.stream(self.stream):
-            for step, src, dst in lane:
+            for step, src, dst, cols in lane:
                 self.events[step.slot].synchronize()
-                n = step.stop - step.start
-                np.copyto(self.views[step.slot][:n],
-                          src[step.start:step.stop])
-                dst[step.start:step.stop].copy_(
-                    self.buffers[step.slot][:n], non_blocking=True)
+                buf = self.buffers[step.slot]
+                if cols is None:
+                    lo, hi = step.start, step.stop
+                    np.copyto(self.views[step.slot][:hi - lo], src[lo:hi])
+                else:
+                    rows = torch.from_numpy(src[step.start:step.stop])
+                    width = rows.element_size() * len(cols)
+                    lo, hi = step.start * width, step.stop * width
+                    torch.index_select(rows, 1, cols, out=buf[:hi - lo].view(
+                        rows.dtype).view(-1, len(cols)))
+                dst[lo:hi].copy_(buf[:hi - lo], non_blocking=True)
                 self.events[step.slot].record(self.stream)
 
 
@@ -127,28 +148,42 @@ def ring(device: torch.device) -> _Ring:
         return _RINGS[device]
 
 
-_TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
-                 np.dtype(np.int16): torch.int16,
-                 np.dtype(np.int8): torch.int8}
+TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
+                np.dtype(np.int16): torch.int16,
+                np.dtype(np.int8): torch.int8}
 
 
-def stage(arrays, device: torch.device):
+def stage(arrays, device: torch.device, columns=None):
     """C-contiguous host arrays (float32, int16 or int8) → (their tensors
     on ``device``, the event on the copy stream after their last chunk).
-    Returns once every byte is in the ring or on its way up; the caller's
-    arrays are only read.  The tensors are allocated on the copy stream:
-    before another stream uses them it waits on the event and calls
+    ``columns``, one entry an array (default: None for each): None sends
+    the whole array; a 1-D index array of a 2-D (rows, channels) array's
+    columns, each in range and of at most ``CHUNK_BYTES`` a row, sends
+    those columns in that order, repeats allowed, as the (rows,
+    selected) tensor ``np.take(x, cols, axis=1)`` would be.  Returns once
+    every byte is in the ring or on its way up; the caller's arrays are
+    only read.  The tensors are allocated on the copy stream: before
+    another stream uses them it waits on the event and calls
     ``record_stream``."""
+    columns = [None] * len(arrays) if columns is None else columns
+    shapes = [x.shape if c is None else (len(x), len(c))
+              for x, c in zip(arrays, columns)]
     r = ring(device)
     with r.lock:
         with torch.cuda.stream(r.stream):
-            dsts = [torch.empty(x.nbytes, dtype=torch.uint8, device=device)
-                    for x in arrays]
+            dsts = [torch.empty(math.prod(shape) * x.itemsize,
+                                dtype=torch.uint8, device=device)
+                    for x, shape in zip(arrays, shapes)]
         chunks = []
-        for x, dst in zip(arrays, dsts):
-            src = x.reshape(-1).view(np.uint8)
-            plan = chunk_plan(x.nbytes, CHUNK_BYTES, r.depth, r.cursor)
-            chunks += [(seq, (step, src, dst))
+        for x, cols, dst in zip(arrays, columns, dsts):
+            if cols is None:
+                src = x.reshape(-1).view(np.uint8)
+                plan = chunk_plan(x.nbytes, CHUNK_BYTES, r.depth, r.cursor)
+            else:
+                src, cols = x, torch.as_tensor(cols, dtype=torch.long)
+                plan = row_plan(len(x), len(cols) * x.itemsize, CHUNK_BYTES,
+                                r.depth, r.cursor)
+            chunks += [(seq, (step, src, dst, cols))
                        for seq, step in enumerate(plan, start=r.cursor)]
             r.cursor += len(plan)
         work = [[job for _, job in lane]
@@ -161,5 +196,5 @@ def stage(arrays, device: torch.device):
                 f.result()
         ready = torch.cuda.Event()
         ready.record(r.stream)
-    return ([d.view(_TORCH_DTYPES[x.dtype]).view(x.shape)
-             for x, d in zip(arrays, dsts)], ready)
+    return ([d.view(TORCH_DTYPES[x.dtype]).view(shape)
+             for x, d, shape in zip(arrays, dsts, shapes)], ready)

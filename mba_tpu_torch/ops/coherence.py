@@ -131,18 +131,26 @@ def _transfer_kind(transfer_dtype):
     return None, None
 
 
-def _upload(x, axis: int, input_transfer, device) -> torch.Tensor:
+def _upload(x, axis: int, input_transfer, device,
+            channels=None) -> torch.Tensor:
     """One signal on ``device`` as (n_samples, n_channels), in the type
-    it crossed in.  With ``input_transfer='int16'`` host input other than
-    int16 is quantized per channel on the host first
+    it crossed in.  ``channels``: the channels to keep, indices along the
+    channel axis; on (samples, channels) input that is not quantized they
+    are gathered on the way up (``_device.upload``), else taken here
+    first.  With ``input_transfer='int16'`` host input other than int16
+    is quantized per channel on the host first, after the selection
     (``coherence.py:349-363``)."""
-    if input_transfer == "int16" and not isinstance(x, torch.Tensor):
-        x = np.asarray(x)
-        if x.dtype != np.int16:
-            x = np.asarray(x, np.float32)
-            x = quantize_int16_per_channel(x.T if axis == 1 else x)
-            axis = 0
-    x = to_device(x, device)
+    quantize = (input_transfer == "int16" and not isinstance(x, torch.Tensor)
+                and np.asarray(x).dtype != np.int16)
+    if channels is not None and (axis == 1 or quantize):
+        x = (x[channels] if isinstance(x, torch.Tensor)     # axis 1
+             else np.take(x, channels, axis=1 - axis))
+        channels = None
+    if quantize:
+        x = np.asarray(x, np.float32)
+        x = quantize_int16_per_channel(x.T if axis == 1 else x)
+        axis = 0
+    x = to_device(x, device, channels)
     return x.T if axis == 1 else x
 
 
@@ -220,6 +228,7 @@ def multitaper_msc(
         verbose: bool = False,
         collect_timings: bool = False,
         device=None,
+        eeg_channels=None,
 ) -> dict:
     """Multitaper magnitude-squared coherence over all EEG×EMG pairs.
 
@@ -244,6 +253,13 @@ def multitaper_msc(
     and casts them to float32 on the device; coherence is invariant to
     the per-channel scale, so only the signal's rounding remains.  int16
     host input and tensors upload as they are.
+
+    ``eeg_channels``: the EEG channels to use, indices along
+    ``eeg_array``'s channel axis (default: all); the result is that of
+    the selected array (``np.take(eeg_array, eeg_channels, axis=...)``),
+    bit for bit.  A (samples, channels) host array's columns are gathered
+    by the staging ring on their way to the card where it can take them
+    (``_device.upload``), with no host copy of the selection.
 
     ``collect_timings`` records the call (``utils.profiling.recording``)
     and returns ``timings``: ``upload_sec``, ``compute_sec`` and
@@ -284,6 +300,8 @@ def multitaper_msc(
             if emg_axis == 1:
                 emg_shape = emg_shape[::-1]
             n_samples, n_eeg = eeg_shape
+            if eeg_channels is not None:
+                n_eeg = len(eeg_channels)
             n_samples_m, n_emg = emg_shape
             if n_samples != n_samples_m:
                 raise ValueError(
@@ -346,7 +364,8 @@ def multitaper_msc(
             chunk = int(min(chunk, max(n_active, 1)))
 
         with span("cmc.upload"):
-            eeg = _upload(eeg_array, eeg_axis, input_transfer, device)
+            eeg = _upload(eeg_array, eeg_axis, input_transfer, device,
+                          eeg_channels)
             emg = _upload(emg_array, emg_axis, input_transfer, device)
             upload_bytes = sum(x.numel() * x.element_size()
                                for x in (eeg, emg))

@@ -300,7 +300,9 @@ def compute_task_wise_aggregated_cmc(
 
     ``timings_out`` records the call (``utils.profiling.recording``) and
     receives its timings: the root ``task_cmc``, ``task_cmc.subset``
-    around the EEG subset's host copy, ``task_cmc.mask`` around the mask
+    around the EEG subset's channel lookup (``multitaper_msc`` takes the
+    channels, ``eeg_channels``, on their way to the device, inside
+    ``cmc.upload``), ``task_cmc.mask`` around the mask
     built from ``log_frame``, and ``multitaper_msc``'s ``cmc`` tree under
     the root, as ``spans`` (the root at index 0) and ``counters``;
     ``multitaper_msc``'s ``*_sec`` and byte keys; ``subset_sec`` and
@@ -308,16 +310,12 @@ def compute_task_wise_aggregated_cmc(
     it the call reads no clock.
     """
     with recording(timings_out is not None) as rec, span("task_cmc"):
+        inds = None
         if eeg_channel_subset:
             with span("task_cmc.subset"):
                 inds = [EEG_CHANNEL_IND_DICT[ch] for ch in eeg_channel_subset]
                 print(f"Reducing EEG to {len(eeg_channel_subset)} channels: "
                       f"{eeg_channel_subset}")
-                # np.take copies a host array's columns ~5x faster than
-                # fancy indexing, into the same C-ordered array
-                eeg_array = (np.take(eeg_array, inds, axis=1)
-                             if isinstance(eeg_array, np.ndarray)
-                             else eeg_array[:, inds])
 
         n_samples_eeg, _ = eeg_array.shape
         n_samples_emg, _ = emg_array.shape
@@ -358,7 +356,7 @@ def compute_task_wise_aggregated_cmc(
             window_mask=window_mask, aggregate_emg_max=fuse, verbose=True,
             collect_timings=rec is not None,
             transfer_dtype=transfer_dtype, freq_range=freq_range,
-            device=device)
+            device=device, eeg_channels=inds)
         if rec is not None:
             timings_out.update(output['timings'])
             timings_out['subset_sec'] = rec.seconds('task_cmc.subset')

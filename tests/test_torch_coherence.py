@@ -229,6 +229,33 @@ class TestMultitaperMsc:
             assert key in got["timings"]
 
     @pytest.mark.parametrize("input_transfer", [None, "int16"])
+    @pytest.mark.parametrize("eeg_axis", [0, 1])
+    @pytest.mark.parametrize("dtype", [np.float32, np.float64, np.int16])
+    @pytest.mark.parametrize("channels", [[2], [3, 0, 0, -1]])
+    def test_eeg_channels_are_the_selected_array(self, input_transfer,
+                                                 eeg_axis, dtype, channels):
+        """``eeg_channels`` gives, bit for bit, what the call on the
+        selected array (``np.take`` along the channel axis) gives: every
+        result, the grid and the metadata, quantized upload or not."""
+        eeg, emg = coupled_signals()
+        eeg = np.concatenate([eeg, eeg[:, ::-1] * 0.5], axis=1)
+        eeg = (eeg * 1000).astype(dtype)
+        if eeg_axis == 1:
+            eeg = eeg.T.copy()
+        kw = dict(window_length_sec=1.0, eeg_axis=eeg_axis,
+                  input_transfer=input_transfer, device="cpu")
+        got = TC.multitaper_msc(eeg, emg, 256, eeg_channels=channels, **kw)
+        want = TC.multitaper_msc(np.take(eeg, channels, axis=1 - eeg_axis),
+                                 emg, 256, **kw)
+        assert set(got) == set(want)
+        for key, val in want.items():
+            if key == "metadata":
+                assert got[key] == val
+            else:
+                assert got[key].dtype == val.dtype
+                np.testing.assert_array_equal(got[key], val)
+
+    @pytest.mark.parametrize("input_transfer", [None, "int16"])
     @pytest.mark.parametrize("transfer_dtype,step", [
         (np.float16, 2.0 ** -11),     # an f16 ulp on [0.5, 1)
         (np.int16, 1 / 65535),        # a lane's step: span ≤ 1 on [0, 1]

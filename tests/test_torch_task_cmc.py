@@ -54,13 +54,15 @@ def entry():
     return entry_mod.Entry(_config(), _traffic(), 2**31 + 7, "cpu")
 
 
-def _call(entry, i, **kw):
-    eeg, emg, spec = entry.inputs[i]
+def _call(entry, i, eeg=None, subset=CMC_EEG_CHANNEL_SUBSET, **kw):
+    """The entry on input i (or on ``eeg`` with input i's EMG), with the
+    study's ``subset``."""
+    eeg_i, emg, spec = entry.inputs[i]
     m = entry.mask
     return TF.compute_task_wise_aggregated_cmc(
-        eeg, emg, 256, spec["muscle"],
+        eeg_i if eeg is None else eeg, emg, 256, spec["muscle"],
         log_frame=entry.log_frames[spec["recording"]],
-        eeg_channel_subset=CMC_EEG_CHANNEL_SUBSET, window_size_sec=2.0,
+        eeg_channel_subset=subset, window_size_sec=2.0,
         window_overlap_ratio=0.5, use_jackknife=True,
         pre_trial_computation_buffer_sec=m["pre_buffer_sec"],
         post_trial_computation_buffer_sec=m["post_buffer_sec"],
@@ -132,6 +134,19 @@ def test_port_against_the_reference(entry, i):
     assert (lower <= values).all() and (values <= upper).all()
 
 
+@pytest.mark.parametrize("i", [0, 1, 2, 3])
+def test_the_subset_is_the_parents_bit_for_bit(entry, i):
+    """The channels taken on their way to the device give what taking
+    them on the host first (``np.take``, then the CMC on the subset, with
+    no subset left to take) gave, bit for bit, mask included."""
+    eeg, _, _ = entry.inputs[i]
+    inds = [EEG_CHANNEL_IND_DICT[c] for c in CMC_EEG_CHANNEL_SUBSET]
+    got = _call(entry, i)
+    want = _call(entry, i, eeg=np.take(eeg, inds, axis=1), subset=None)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+
+
 @pytest.mark.parametrize("fault", ["drop", "add"])
 def test_reference_counts_a_wrong_mask(entry, fault):
     values, lower, upper, _, _ = _call(entry, 0)
@@ -187,15 +202,18 @@ def test_traced_call_is_one_tree(entry):
         if parent >= 0:
             assert parent < i
             assert recs[parent][2] <= start and end <= recs[parent][3]
-    assert timings["counters"] == {"cmc.download_copies":
-                                   3 * ref.runs(entry.active)}
+    eeg, emg, _ = entry.inputs[0]
+    # the subset is counted as asked of the upload; on the CPU nothing
+    # is gathered by the staging ring
+    assert timings["counters"] == {
+        "cmc.download_copies": 3 * ref.runs(entry.active),
+        "upload.subset_bytes": eeg.nbytes * 11 // 64}
     for key, name in (("subset_sec", "task_cmc.subset"),
                       ("mask_sec", "task_cmc.mask"),
                       ("upload_sec", "cmc.upload"),
                       ("compute_sec", "cmc.compute"),
                       ("download_sec", "cmc.download")):
         assert timings[key] == _span_sum(recs, name) > 0.0, key
-    eeg, emg, _ = entry.inputs[0]
     assert timings["upload_bytes"] == (eeg.nbytes * 11 // 64 + emg.nbytes)
     assert timings["download_bytes"] == 3 * 43 * 257 * 11 * 4
     assert timings["K_tapers"] == 5
@@ -289,3 +307,33 @@ def test_the_null_inside_a_recording_keeps_its_own_tree():
         t = _null_alone()
     assert _names(rec.records) == ["caller"] and rec.counters == {}
     assert t["spans"][0][:3] == ["null", -1, 0.0]
+
+
+# ---- on the card --------------------------------------------------------
+
+@pytest.mark.cuda
+def test_the_gathered_subset_is_the_parents_on_the_card():
+    """At a size whose subset the staging ring gathers on its way to the
+    card (2000 s at 256 Hz: 22.5 MB of the 131-MB array), the entry
+    gives what the CMC on the host's ``np.take`` gives, bit for bit, and
+    counts the subset as gathered whole."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the staging ring gathers the "
+                    "subset on its way to it")
+    rng = np.random.default_rng(5)
+    n = 2000 * 256
+    eeg = rng.standard_normal((n, 64), dtype=np.float32)
+    emg = rng.standard_normal((n, 3), dtype=np.float32)
+    mask = rng.random((n - 512) // 256 + 1) < 0.8
+    inds = [EEG_CHANNEL_IND_DICT[c] for c in CMC_EEG_CHANNEL_SUBSET]
+    kw = {"window_mask": mask, "device": "cuda"}
+    timings = {}
+    got = TF.compute_task_wise_aggregated_cmc(
+        eeg, emg, 256, "flexor", eeg_channel_subset=CMC_EEG_CHANNEL_SUBSET,
+        timings_out=timings, **kw)
+    want = TF.compute_task_wise_aggregated_cmc(
+        np.take(eeg, inds, axis=1), emg, 256, "flexor", **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    assert timings["counters"]["upload.gathered_bytes"] == \
+        timings["counters"]["upload.subset_bytes"] == n * 11 * 4
