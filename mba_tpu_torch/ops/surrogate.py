@@ -19,8 +19,6 @@ plain XLA (no Pallas), so this module is plain PyTorch: cuFFT through
 """
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -30,6 +28,7 @@ from mba_tpu_torch._dist import check_mesh, flat_index, mesh_entry_device
 from mba_tpu_torch.ops import cuda_prng, prng
 from mba_tpu_torch.ops.dpss import filtered_tapers
 from mba_tpu_torch.ops.framing import window_grid
+from mba_tpu_torch.utils.profiling import count, recording, span
 
 _F32_TINY = torch.finfo(torch.float32).tiny
 N_BINS = 1024        # histogram bins of the null's per-cell quantiles
@@ -246,10 +245,12 @@ def _surrogate_chunk(phases, emg_f, eeg_spec, frame_idx, tapers, inv_fs_n,
     window's samples."""
     out = []
     for s0 in range(0, phases.shape[0], width):
-        surr = rotate_phases(emg_f, n_samples, phases[s0:s0 + width])
-        out.append(_msc_from_spectra(
-            eeg_spec, _tapered_spectra(surr[:, frame_idx], tapers),
-            inv_fs_n))
+        with span("phase_null.batch"):
+            count("phase_null.batches")
+            surr = rotate_phases(emg_f, n_samples, phases[s0:s0 + width])
+            out.append(_msc_from_spectra(
+                eeg_spec, _tapered_spectra(surr[:, frame_idx], tapers),
+                inv_fs_n))
     return torch.cat(out)
 
 
@@ -302,101 +303,129 @@ def msc_phase_randomized_null(
     full chunk from ``split(sub, n_ranks)[r]``, the ranks all-reduce
     their histogram increments and all-gather their maxima, and the
     round counts ``n_ranks · surrogate_chunk`` surrogates.
+
+    Every call is recorded (``utils.profiling.recording``):
+    ``timings['spans']`` holds the records of the root ``phase_null``,
+    ``phase_null.upload``, ``phase_null.observed`` (closed by the
+    observed spectrum's copy to the host), ``phase_null.surrogates``
+    (through the maxima's copy to the host) with one
+    ``phase_null.chunk`` a chunk, each holding its ``phase_null.draw``,
+    one ``phase_null.batch`` a batch of :func:`_auto_vmap_width`
+    surrogates and its ``phase_null.hist``, and ``phase_null.epilogue``
+    (``p_fwe`` and the quantiles); ``timings['counters']`` the
+    surrogates drawn, the last chunk's surplus included
+    (``phase_null.surrogates_drawn``; under a mesh, this rank's), and
+    the batches (``phase_null.batches``).  ``upload_sec``,
+    ``observed_sec`` and ``null_sec`` are the sums of
+    ``phase_null.upload``, ``phase_null.observed`` and
+    ``phase_null.surrogates``.
     """
-    if mesh is not None:
-        device = mesh_entry_device(check_mesh(mesh), device)
-    else:
-        device = entry_device(device, eeg, emg)
-    t_up0 = time.perf_counter()
-    eeg_t = to_device(eeg, device).to(torch.float32)
-    emg_t = to_device(emg, device).to(torch.float32)
-    if eeg_t.ndim == 1:          # promote single channels like multitaper_psd
-        eeg_t = eeg_t[:, None]
-    if emg_t.ndim == 1:
-        emg_t = emg_t[:, None]
-    synchronize(device)
-    t_upload = time.perf_counter() - t_up0
-    n_samples, n_eeg = eeg_t.shape
-    n_emg = emg_t.shape[1]
-    window_samples = int(window_length_sec * sampling_freq)
-    hop = int(window_samples * (1 - overlap_frac))
-    tapers_np = filtered_tapers(window_samples, nw,
-                                taper_eigenvalue_threshold)
-    tapers = torch.as_tensor(tapers_np, dtype=torch.float32, device=device)
-    starts, _ = window_grid(n_samples, window_samples, hop, sampling_freq,
-                            convention="cmc")
-    inv_fs_n = float(np.float32(1.0 / (sampling_freq * window_samples)))
-    freqs = np.fft.rfftfreq(window_samples, d=1.0 / sampling_freq)
-    fmask_np = _null_freq_mask(freqs, window_samples, band)
-    fmask = torch.as_tensor(fmask_np, dtype=torch.float32, device=device)
-
-    t_ob0 = time.perf_counter()
-    frame_idx = (torch.as_tensor(starts, device=device)[:, None]
-                 + torch.arange(window_samples, device=device))
-    eeg_spec = _tapered_spectra(eeg_t[frame_idx], tapers)
-    observed = _msc_from_spectra(
-        eeg_spec, _tapered_spectra(emg_t[frame_idx], tapers),
-        inv_fs_n).cpu().numpy()
-    t_observed = time.perf_counter() - t_ob0
-
-    t_null0 = time.perf_counter()
-    key = prng.prng_key(seed)
-    emg_f = torch.fft.rfft(emg_t, dim=0)
-    n_freqs = len(freqs)
-    n_cells = n_freqs * n_eeg * n_emg
-    hist = None if max_stat_only else torch.zeros(
-        n_cells * N_BINS, dtype=torch.int32, device=device)
-    chunk = int(min(surrogate_chunk, n_surrogates))
-    width = _auto_vmap_width(len(starts), window_samples, tapers.shape[0],
-                             n_eeg, n_emg, chunk)
-    max_stats = []
-    n_hist_total = 0
-    done = 0
-    while done < n_surrogates:
-        key, sub = prng.split(key)
+    with recording() as rec, span("phase_null"):
         if mesh is not None:
-            sub = prng.split(sub, mesh.size())[flat_index(mesh)]
-        phases = draw_chunk_phases(sub, chunk, emg_f.shape[0], n_emg, device)
-        spectra = _surrogate_chunk(phases, emg_f, eeg_spec, frame_idx,
-                                   tapers, inv_fs_n, n_samples, width)
-        ms = (spectra * fmask[None, :, None, None]).amax(dim=(1, 2, 3))
-        if hist is not None and mesh is None:
-            _hist_accumulate(spectra, hist)
-        elif hist is not None:      # the ranks' increments, summed
-            hist += _dist.psum_(_hist_accumulate(spectra,
-                                                torch.zeros_like(hist)))
-        if mesh is not None:
-            ms = torch.cat(_dist.gather(ms, mesh))
-        take = min(ms.shape[0], n_surrogates - done)
-        max_stats.append(ms[:take])
-        if hist is not None:
-            n_hist_total += ms.shape[0]
-        done += take
-
-    max_stat = torch.cat(max_stats).cpu().numpy()
-    t_null = time.perf_counter() - t_null0
-    observed_max = float(observed[fmask_np].max())
-    p_fwe = float((1.0 + (max_stat >= observed_max).sum())
-                  / (1.0 + len(max_stat)))
-    result = {"max_stat": max_stat, "observed": observed, "freqs": freqs,
-              "observed_max": observed_max, "p_fwe": p_fwe,
-              "timings": {"upload_sec": round(t_upload, 3),
-                          "observed_sec": round(t_observed, 3),
-                          "null_sec": round(t_null, 3),
-                          "upload_bytes": int(n_samples * (n_eeg + n_emg)
-                                              * 4)},
-              "null_quantiles": {}}
-    if hist is not None:
-        hist = hist.reshape(n_freqs, n_eeg, n_emg, N_BINS)
-        cdf = (hist.cumsum(dim=-1).to(torch.float32)
-               / torch.tensor(n_hist_total, dtype=torch.float32,
-                              device=device))
-    for q in quantiles:
-        if max_stat_only:
-            result["null_quantiles"][q] = float(np.quantile(max_stat, q))
+            device = mesh_entry_device(check_mesh(mesh), device)
         else:
-            qidx = (cdf < torch.tensor(q, dtype=torch.float32,
-                                       device=device)).sum(dim=-1)
-            result["null_quantiles"][q] = ((qidx + 1).to(torch.float32)
-                                           / N_BINS).cpu().numpy()
+            device = entry_device(device, eeg, emg)
+        with span("phase_null.upload"):
+            eeg_t = to_device(eeg, device).to(torch.float32)
+            emg_t = to_device(emg, device).to(torch.float32)
+            if eeg_t.ndim == 1:      # single channels, as multitaper_psd
+                eeg_t = eeg_t[:, None]
+            if emg_t.ndim == 1:
+                emg_t = emg_t[:, None]
+            synchronize(device)
+        n_samples, n_eeg = eeg_t.shape
+        n_emg = emg_t.shape[1]
+        window_samples = int(window_length_sec * sampling_freq)
+        hop = int(window_samples * (1 - overlap_frac))
+        tapers_np = filtered_tapers(window_samples, nw,
+                                    taper_eigenvalue_threshold)
+        tapers = torch.as_tensor(tapers_np, dtype=torch.float32,
+                                 device=device)
+        starts, _ = window_grid(n_samples, window_samples, hop,
+                                sampling_freq, convention="cmc")
+        inv_fs_n = float(np.float32(1.0 / (sampling_freq * window_samples)))
+        freqs = np.fft.rfftfreq(window_samples, d=1.0 / sampling_freq)
+        fmask_np = _null_freq_mask(freqs, window_samples, band)
+        fmask = torch.as_tensor(fmask_np, dtype=torch.float32, device=device)
+
+        with span("phase_null.observed"):
+            frame_idx = (torch.as_tensor(starts, device=device)[:, None]
+                         + torch.arange(window_samples, device=device))
+            eeg_spec = _tapered_spectra(eeg_t[frame_idx], tapers)
+            observed = _msc_from_spectra(
+                eeg_spec, _tapered_spectra(emg_t[frame_idx], tapers),
+                inv_fs_n).cpu().numpy()
+
+        with span("phase_null.surrogates"):
+            key = prng.prng_key(seed)
+            emg_f = torch.fft.rfft(emg_t, dim=0)
+            n_freqs = len(freqs)
+            n_cells = n_freqs * n_eeg * n_emg
+            hist = None if max_stat_only else torch.zeros(
+                n_cells * N_BINS, dtype=torch.int32, device=device)
+            chunk = int(min(surrogate_chunk, n_surrogates))
+            width = _auto_vmap_width(len(starts), window_samples,
+                                     tapers.shape[0], n_eeg, n_emg, chunk)
+            max_stats = []
+            n_hist_total = 0
+            done = 0
+            while done < n_surrogates:
+                with span("phase_null.chunk"):
+                    key, sub = prng.split(key)
+                    if mesh is not None:
+                        sub = prng.split(sub, mesh.size())[flat_index(mesh)]
+                    with span("phase_null.draw"):
+                        phases = draw_chunk_phases(sub, chunk,
+                                                   emg_f.shape[0], n_emg,
+                                                   device)
+                    count("phase_null.surrogates_drawn", chunk)
+                    spectra = _surrogate_chunk(phases, emg_f, eeg_spec,
+                                               frame_idx, tapers, inv_fs_n,
+                                               n_samples, width)
+                    ms = (spectra * fmask[None, :, None, None]
+                          ).amax(dim=(1, 2, 3))
+                    with span("phase_null.hist"):
+                        if hist is not None and mesh is None:
+                            _hist_accumulate(spectra, hist)
+                        elif hist is not None:  # the ranks' increments
+                            hist += _dist.psum_(_hist_accumulate(
+                                spectra, torch.zeros_like(hist)))
+                    if mesh is not None:
+                        ms = torch.cat(_dist.gather(ms, mesh))
+                    take = min(ms.shape[0], n_surrogates - done)
+                    max_stats.append(ms[:take])
+                    if hist is not None:
+                        n_hist_total += ms.shape[0]
+                    done += take
+            max_stat = torch.cat(max_stats).cpu().numpy()
+
+        # each time is the sum of its spans, unrounded
+        result = {"max_stat": max_stat, "observed": observed,
+                  "freqs": freqs, "null_quantiles": {},
+                  "timings": {"upload_sec": rec.seconds("phase_null.upload"),
+                              "observed_sec":
+                                  rec.seconds("phase_null.observed"),
+                              "null_sec": rec.seconds("phase_null.surrogates"),
+                              "upload_bytes": int(n_samples * (n_eeg + n_emg)
+                                                  * 4),
+                              **rec.timings()}}
+        with span("phase_null.epilogue"):
+            observed_max = float(observed[fmask_np].max())
+            result["observed_max"] = observed_max
+            result["p_fwe"] = float((1.0 + (max_stat >= observed_max).sum())
+                                    / (1.0 + len(max_stat)))
+            if hist is not None:
+                hist = hist.reshape(n_freqs, n_eeg, n_emg, N_BINS)
+                cdf = (hist.cumsum(dim=-1).to(torch.float32)
+                       / torch.tensor(n_hist_total, dtype=torch.float32,
+                                      device=device))
+            for q in quantiles:
+                if max_stat_only:
+                    result["null_quantiles"][q] = float(
+                        np.quantile(max_stat, q))
+                else:
+                    qidx = (cdf < torch.tensor(q, dtype=torch.float32,
+                                               device=device)).sum(dim=-1)
+                    result["null_quantiles"][q] = (
+                        (qidx + 1).to(torch.float32) / N_BINS).cpu().numpy()
     return result

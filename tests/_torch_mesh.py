@@ -208,3 +208,22 @@ def four_rank_cases(mesh):
                                             window_masks=masks, **CMC_KW),
             "time": time_sharded_msc(mesh, teeg, temg, FS, overlap_frac=0.5,
                                      **CMC_KW)}
+
+
+def phase_null_spans_on_and_off(mesh):
+    """The phase null on ``mesh`` as it records, then with its spans and
+    counters made no-ops (``tests/test_torch_spans.py``)."""
+    from mba_tpu_torch.ops import surrogate as TS
+    from mba_tpu_torch.utils import profiling as TP
+
+    eeg, emg = null_pair(n_emg=2)
+    out = {"on": TS.msc_phase_randomized_null(eeg, emg, FS, mesh=mesh,
+                                              **PHASE_KW)}
+    span, count = TS.span, TS.count
+    TS.span, TS.count = (lambda name: TP._NO_SPAN), (lambda *a, **k: None)
+    try:
+        out["off"] = TS.msc_phase_randomized_null(eeg, emg, FS, mesh=mesh,
+                                                  **PHASE_KW)
+    finally:
+        TS.span, TS.count = span, count
+    return out

@@ -1,10 +1,12 @@
-"""The spans and counters of ``utils.profiling`` inside the port's two
-recorded entry points, ``ops.coherence.multitaper_msc`` and
-``ops.cohort_null.cohort_msc_rotation_null``, on the CPU at small sizes:
+"""The spans and counters of ``utils.profiling`` inside the port's
+recorded entry points, ``ops.coherence.multitaper_msc``,
+``ops.cohort_null.cohort_msc_rotation_null`` and
+``ops.surrogate.msc_phase_randomized_null``, on the CPU at small sizes:
 the recorder itself, the span trees, the counters against the shapes
 and padding that decide them, the ``*_sec`` timings as sums of their
 spans, the ranges a ``torch.profiler`` trace holds, and the synchronises
-and ranges a call makes with recording on and off."""
+and ranges a call makes with recording on and off; the phase null's
+results bit for bit with its spans made no-ops, on a gloo mesh too."""
 import contextlib
 import json
 import math
@@ -17,6 +19,7 @@ from torch.profiler import ProfilerActivity, profile
 from mba_tpu_torch import _device as TD
 from mba_tpu_torch.ops import coherence as TC
 from mba_tpu_torch.ops import cohort_null as TN
+from mba_tpu_torch.ops import surrogate as TS
 from mba_tpu_torch.ops.gram_coeffs import GRAM_CHUNK
 from mba_tpu_torch.utils import profiling as TP
 
@@ -51,6 +54,29 @@ def _cohort(n_sec=12.0, seed=1):
     eeg = rng.standard_normal((NULL_J, n, 2)) + 0.5 * drive
     emg = rng.standard_normal((NULL_J, n, 2)) + 0.5 * drive
     return eeg.astype(np.float32), emg.astype(np.float32)
+
+
+PHASE_FS = 128.0
+PHASE_KW = dict(window_length_sec=1.0, n_surrogates=40, surrogate_chunk=16,
+                seed=3, device="cpu")
+PHASE_CHUNKS = 3             # 40 surrogates in chunks of 16
+PHASE_WIDTH = 6              # surrogates a batch: 6 + 6 + 4 a chunk
+
+
+def _phase(monkeypatch=None, **kw):
+    """The phase null on 2 × 3 channels of 8 s; with ``monkeypatch``,
+    batches of PHASE_WIDTH surrogates."""
+    if monkeypatch is not None:
+        monkeypatch.setattr(TS, "_auto_vmap_width",
+                            lambda *a, **k: PHASE_WIDTH)
+    rng = np.random.default_rng(5)
+    n = int(8 * PHASE_FS)
+    drive = rng.standard_normal((n, 1))
+    eeg = rng.standard_normal((n, 2)) + 0.5 * drive
+    emg = rng.standard_normal((n, 3)) + 0.5 * drive
+    return TS.msc_phase_randomized_null(
+        eeg.astype(np.float32), emg.astype(np.float32), PHASE_FS,
+        **{**PHASE_KW, **kw})
 
 
 def _null(**kw):
@@ -427,3 +453,90 @@ def test_null_synchronises_and_ranges(monkeypatch, profiler, rotation_mode):
     assert counts.sync == 1 and counts.cuda_sync == 0
     n_spans = len(res["metadata"]["timings"]["spans"])
     assert counts.ranges == (n_spans if profiler else 0)
+
+
+# ---- the phase null ----------------------------------------------------
+
+@pytest.mark.parametrize("max_stat_only", [False, True])
+def test_phase_null_span_tree_and_counters(monkeypatch, max_stat_only):
+    t = _phase(monkeypatch, max_stat_only=max_stat_only)["timings"]
+    recs = t["spans"]
+    _assert_tree(recs, "phase_null")
+    assert _names(recs, 0) == ["phase_null.upload", "phase_null.observed",
+                               "phase_null.surrogates",
+                               "phase_null.epilogue"]
+    surr = _names(recs).index("phase_null.surrogates")
+    assert _names(recs, surr) == ["phase_null.chunk"] * PHASE_CHUNKS
+    chunks = [i for i, r in enumerate(recs) if r[0] == "phase_null.chunk"]
+    assert [_names(recs, i) for i in chunks] == [
+        ["phase_null.draw"] + ["phase_null.batch"] * 3
+        + ["phase_null.hist"]] * PHASE_CHUNKS
+    # every surrogate drawn, the last chunk's 8 of surplus included
+    assert t["counters"] == {"phase_null.surrogates_drawn": 48,
+                             "phase_null.batches": 3 * PHASE_CHUNKS}
+
+
+def test_phase_null_timings_are_sums_of_spans():
+    t = _phase()["timings"]
+    recs = t["spans"]
+    for key, name in (("upload_sec", "phase_null.upload"),
+                      ("observed_sec", "phase_null.observed"),
+                      ("null_sec", "phase_null.surrogates")):
+        assert t[key] == _span_sum(recs, name) > 0.0, key
+        assert t[key] != round(t[key], 3), key
+    assert t["upload_bytes"] == int(8 * PHASE_FS) * 5 * 4
+    # one batch a chunk at the budget's width
+    assert t["counters"]["phase_null.batches"] == PHASE_CHUNKS
+    json.dumps(t)                                  # the result line's form
+
+
+def _assert_results_equal(a, b):
+    assert set(a) == set(b)
+    for k in a:
+        if k == "timings":
+            continue
+        if k == "null_quantiles":
+            assert set(a[k]) == set(b[k])
+            for q in a[k]:
+                np.testing.assert_array_equal(a[k][q], b[k][q], err_msg=k)
+        elif isinstance(a[k], np.ndarray):
+            assert a[k].dtype == b[k].dtype, k
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        else:
+            assert a[k] == b[k], k
+
+
+@pytest.mark.parametrize("profiler", [False, True])
+@pytest.mark.parametrize("max_stat_only", [False, True])
+def test_phase_null_results_with_and_without_spans(monkeypatch, profiler,
+                                                   max_stat_only):
+    """Every result bit for bit with the spans and counters made no-ops,
+    under the profiler too; one synchronise (the upload's) either way,
+    and a range a span only while the profiler runs."""
+    syncs = []
+    monkeypatch.setattr(TS, "synchronize", lambda d: syncs.append(d))
+    with _profiled(profiler):
+        on = _phase(monkeypatch, max_stat_only=max_stat_only)
+    monkeypatch.setattr(TS, "span", lambda name: TP._NO_SPAN)
+    monkeypatch.setattr(TS, "count", lambda *a, **k: None)
+    off = _phase(monkeypatch, max_stat_only=max_stat_only)
+    assert len(syncs) == 2
+    _assert_results_equal(on, off)
+    assert off["timings"]["spans"] == [] and off["timings"]["counters"] == {}
+
+
+def test_phase_null_results_with_and_without_spans_on_a_mesh(tmp_path):
+    """Two gloo ranks: rank r's chunk from split(sub, 2)[r], the
+    histogram increments summed; the results bit for bit with the spans
+    made no-ops, and each rank's counters its own draws."""
+    import _torch_mesh as M
+    ranks = M.run_ranks(M.phase_null_spans_on_and_off, 2, tmp_path)
+    for r in ranks:
+        _assert_results_equal(r["on"], r["off"])
+        _assert_results_equal(r["on"], ranks[0]["on"])
+        t = r["on"]["timings"]
+        _assert_tree(t["spans"], "phase_null")
+        n_rounds = -(-M.PHASE_KW["n_surrogates"] // (2 * 8))
+        assert _names(t["spans"]).count("phase_null.chunk") == n_rounds
+        assert t["counters"]["phase_null.surrogates_drawn"] == 8 * n_rounds
+        assert r["off"]["timings"]["spans"] == []

@@ -204,8 +204,11 @@ def _assert_null_close(got, ref, max_stat_only):
         assert g.dtype == np.float32 and g.shape == r.shape
         diff = np.abs(g - r) * TS.N_BINS
         assert (diff > 0).mean() <= QUANTILE_CELLS and diff.max() <= 1, q
+    # the JAX package's clocks, as sums of the port's spans, and the
+    # span records and counters themselves
     assert set(got["timings"]) == {"upload_sec", "observed_sec",
-                                   "null_sec", "upload_bytes"}
+                                   "null_sec", "upload_bytes", "spans",
+                                   "counters"}
     assert got["timings"]["upload_bytes"] == ref["timings"]["upload_bytes"]
 
 
